@@ -1,0 +1,134 @@
+"""Res2Net-v1b backbone (NCHW), the PraNet encoder.
+
+Port of the plain module path of ``pranet2_tpu/models/backbones/res2net.py``,
+with the reference's attribute names (``conv1.0``, ``layer1.0.convs.0``,
+``layer2.0.downsample.1``, ...).  The JAX package's ``fused``, ``s2d_stem``,
+``l1_packed``, ``gstage``, ``splitmm`` and ``tailfuse`` branches are TPU
+restructures or opt-in kernels of the same arithmetic and are left out.
+
+* Bottle2neck: 1x1 expand to ``width*scale`` channels, split into ``scale``
+  groups; groups 0..scale-2 go through 3x3 conv+BN+ReLU, fed by a running
+  sum in 'normal' blocks and independently in 'stage' blocks; the last group
+  passes through ('normal') or is 3x3/stride avg-pooled ('stage'); concat,
+  1x1 project, residual add, ReLU.  width = floor(planes*26/64), scale = 4.
+* Deep stem: three 3x3 convs (3->32->32->64, the first stride 2) with
+  BN+ReLU, then the 3x3/2 maxpool kernel (``ops.stem.max_pool3x3s2``).
+* Downsample shortcut: stride x stride avg-pool (ceil mode,
+  ``count_include_pad=False``), then 1x1 conv + BN.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from pranet2_tpu_torch.ops import avg_pool, max_pool3x3s2
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+
+class _ShortcutPool(nn.Module):
+    """``downsample.0``: AvgPool2d(stride, stride, ceil_mode, no pad count)."""
+
+    def __init__(self, stride: int):
+        super().__init__()
+        self.stride = stride
+
+    def forward(self, x):
+        if self.stride == 1:
+            return x
+        return avg_pool(x, self.stride, self.stride, 0,
+                        count_include_pad=False, ceil_mode=True)
+
+
+class Bottle2neck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 has_downsample: bool = False, stype: str = "normal",
+                 base_width: int = 26, scale: int = 4):
+        super().__init__()
+        width = int(math.floor(planes * (base_width / 64.0)))
+        self.width, self.scale, self.stride, self.stype = (
+            width, scale, stride, stype)
+        self.conv1 = nn.Conv2d(inplanes, width * scale, 1, bias=False)
+        self.bn1 = _bn(width * scale)
+        nums = 1 if scale == 1 else scale - 1
+        self.convs = nn.ModuleList(
+            nn.Conv2d(width, width, 3, stride, 1, bias=False)
+            for _ in range(nums))
+        self.bns = nn.ModuleList(_bn(width) for _ in range(nums))
+        cout = planes * self.expansion
+        self.conv3 = nn.Conv2d(width * scale, cout, 1, bias=False)
+        self.bn3 = _bn(cout)
+        self.downsample = (nn.Sequential(
+            _ShortcutPool(stride),
+            nn.Conv2d(inplanes, cout, 1, bias=False),
+            _bn(cout),
+        ) if has_downsample else None)
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        spx = torch.split(out, self.width, 1)
+        parts = []
+        sp = None
+        for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
+            sp = spx[i] if (i == 0 or self.stype == "stage") else sp + spx[i]
+            sp = torch.relu(bn(conv(sp)))
+            parts.append(sp)
+        if self.scale != 1:
+            if self.stype == "normal":
+                parts.append(spx[-1])
+            else:
+                parts.append(avg_pool(spx[-1], 3, self.stride, 1))
+        out = self.bn3(self.conv3(torch.cat(parts, 1)))
+        short = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + short)
+
+
+class Res2Net(nn.Module):
+    """Res2Net-v1b feature pyramid.
+
+    ``forward`` returns (x1, x2, x3, x4) at strides 4/8/16/32 with 256/512/
+    1024/2048 channels, the stages PraNet reads.
+    """
+
+    def __init__(self, layers=(3, 4, 6, 3), base_width: int = 26,
+                 scale: int = 4):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            nn.Conv2d(3, 32, 3, 2, 1, bias=False), _bn(32),
+            nn.ReLU(),
+            nn.Conv2d(32, 32, 3, 1, 1, bias=False), _bn(32), nn.ReLU(),
+            nn.Conv2d(32, 64, 3, 1, 1, bias=False),
+        )
+        self.bn1 = _bn(64)
+        inplanes = 64
+        for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers),
+                                              start=1):
+            stride = 1 if li == 1 else 2
+            seq = []
+            for bi in range(blocks):
+                if bi == 0:
+                    seq.append(Bottle2neck(
+                        inplanes, planes, stride,
+                        stride != 1 or inplanes != planes * 4, "stage",
+                        base_width, scale))
+                    inplanes = planes * 4
+                else:
+                    seq.append(Bottle2neck(inplanes, planes, 1, False,
+                                           "normal", base_width, scale))
+            setattr(self, f"layer{li}", nn.Sequential(*seq))
+
+    def forward(self, x):
+        x = torch.relu(self.bn1(self.conv1(x)))
+        x = max_pool3x3s2(x)
+        x1 = self.layer1(x)
+        x2 = self.layer2(x1)
+        x3 = self.layer3(x2)
+        x4 = self.layer4(x3)
+        return x1, x2, x3, x4

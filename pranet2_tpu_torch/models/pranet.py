@@ -1,0 +1,88 @@
+"""PraNet-V2 (DSRA), the binary polyp model, on Res2Net-50-v1b.
+
+Port of ``pranet2_tpu/models/pranet.py::PraNetV2`` with the reference's
+attribute names: ``backbone.*``, ``rfb{2,3,4}_1``, ``agg1``,
+``ra{4,3,2}_conv{N}[_fg|_bg]`` and the grayscale stem ``conv.{0,1}``.
+
+Encoder stages 2-4 -> three RFBs (32 ch) -> dual-head partial decoder ->
+coarse fg/bg maps at 1/8 scale.  Each DSRA branch runs its conv trunk on the
+raw stage, emits fg/bg heads and gates fg with
+``fg + fg * softmax_c(crop_fg - crop_bg)`` through ``ops.dsra_gate`` (the
+kernel, on a CUDA tensor).  Returns 8 maps at input resolution, fine-first:
+(map2_fg, map3_fg, map4_fg, map5_fg, map2_bg, map3_bg, map4_bg, map5_bg).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pranet2_tpu_torch.models.backbones.res2net import Res2Net
+from pranet2_tpu_torch.models.registry import register_model
+from pranet2_tpu_torch.nn import RFB, ConvBN, PartialDecoder
+from pranet2_tpu_torch.ops import dsra_gate, resize_bilinear
+
+# level -> (stage channels, trunk width, trunk convs, trunk kernel,
+#           head kernel, head index in the torch names)
+_DSRA = {4: (2048, 256, 3, 5, 1, 5), 3: (1024, 64, 2, 3, 3, 4),
+         2: (512, 64, 2, 3, 3, 4)}
+
+
+class PraNetV2(nn.Module):
+    def __init__(self, channel: int = 32, num_class: int = 1,
+                 use_softmax: bool = True):
+        super().__init__()
+        self.use_softmax = use_softmax
+        # grayscale stem, applied to 1-channel input only
+        self.conv = nn.Sequential(nn.Conv2d(1, 3, 1),
+                                  nn.BatchNorm2d(3, eps=1e-5, momentum=0.1),
+                                  nn.ReLU())
+        self.backbone = Res2Net(layers=(3, 4, 6, 3))
+        self.rfb2_1 = RFB(512, channel)
+        self.rfb3_1 = RFB(1024, channel)
+        self.rfb4_1 = RFB(2048, channel)
+        self.agg1 = PartialDecoder(channel, num_class)
+        for lvl, (cin, mid, n_convs, k, hk, hi) in _DSRA.items():
+            setattr(self, f"ra{lvl}_conv1", ConvBN(cin, mid, 1))
+            for i in range(2, 2 + n_convs):
+                setattr(self, f"ra{lvl}_conv{i}",
+                        ConvBN(mid, mid, k, padding=k // 2))
+            for side in ("fg", "bg"):
+                setattr(self, f"ra{lvl}_conv{hi}_{side}",
+                        ConvBN(mid, num_class, hk, padding=hk // 2))
+
+    def _dsra_branch(self, lvl: int, x):
+        """Trunk convs on the raw stage, then the fg/bg heads."""
+        _, _, n_convs, _, _, hi = _DSRA[lvl]
+        x = getattr(self, f"ra{lvl}_conv1")(x)
+        for i in range(2, 2 + n_convs):
+            x = torch.relu(getattr(self, f"ra{lvl}_conv{i}")(x))
+        return (getattr(self, f"ra{lvl}_conv{hi}_fg")(x),
+                getattr(self, f"ra{lvl}_conv{hi}_bg")(x))
+
+    def forward(self, x):
+        x = x.to(self.backbone.conv1[0].weight.dtype)
+        if x.shape[1] == 1:
+            x = self.conv(x)
+        h, w = x.shape[-2:]
+        _, x2, x3, x4 = self.backbone(x)
+        ra5_fg, ra5_bg = self.agg1(self.rfb4_1(x4), self.rfb3_1(x3),
+                                   self.rfb2_1(x2))
+        fg_maps = [resize_bilinear(ra5_fg, (h, w))]
+        bg_maps = [resize_bilinear(ra5_bg, (h, w))]
+        prev_fg, prev_bg = ra5_fg, ra5_bg
+        for lvl, stage in ((4, x4), (3, x3), (2, x2)):
+            size = tuple(stage.shape[-2:])
+            crop_fg = resize_bilinear(prev_fg, size)
+            crop_bg = resize_bilinear(prev_bg, size)
+            ra_fg, ra_bg = self._dsra_branch(lvl, stage)
+            ra_fg = dsra_gate(ra_fg, crop_fg, crop_bg, self.use_softmax)
+            fg_maps.insert(0, resize_bilinear(ra_fg, (h, w)))
+            bg_maps.insert(0, resize_bilinear(ra_bg, (h, w)))
+            prev_fg, prev_bg = ra_fg, ra_bg
+        return (*fg_maps, *bg_maps)
+
+
+@register_model("pranet_v2")
+def _pranet_v2(**kw):
+    return PraNetV2(**kw)

@@ -1,0 +1,117 @@
+"""Shared building blocks (NCHW), named after the reference's torch modules.
+
+Port of ``pranet2_tpu/nn.py``: ``ConvBN`` (the reference's ``BasicConv2d``),
+``RFB`` and the dual-head ``PartialDecoder``.  BatchNorm is
+``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  The JAX package's ``decdot``
+and ``splitconv`` paths are TPU layout rewrites of the same convolutions and
+are not carried over.
+
+Reduced precision: ``set_compute_dtype`` casts the convolutions and keeps
+every BatchNorm in float32, as the JAX package keeps its parameters and
+statistics in float32 while computing in bfloat16.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from pranet2_tpu_torch.ops import resize_bilinear
+
+
+class ConvBN(nn.Module):
+    """conv (no bias) + BN, no activation (torch ``BasicConv2d``)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size=3, stride: int = 1,
+                 padding=0, dilation: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel_size, stride, padding,
+                              dilation, bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        return self.bn(self.conv(x))
+
+
+class RFB(nn.Module):
+    """Receptive-field block: four multi-scale branches, concat-fuse + residual."""
+
+    def __init__(self, cin: int, c: int):
+        super().__init__()
+        self.branch0 = nn.Sequential(ConvBN(cin, c, 1))
+        for i, k in enumerate((3, 5, 7), start=1):
+            p = k // 2
+            setattr(self, f"branch{i}", nn.Sequential(
+                ConvBN(cin, c, 1),
+                ConvBN(c, c, (1, k), padding=(0, p)),
+                ConvBN(c, c, (k, 1), padding=(p, 0)),
+                ConvBN(c, c, 3, padding=k, dilation=k),
+            ))
+        self.conv_cat = ConvBN(4 * c, c, 3, padding=1)
+        self.conv_res = ConvBN(cin, c, 1)
+
+    def forward(self, x):
+        xs = [self.branch0(x), self.branch1(x), self.branch2(x),
+              self.branch3(x)]
+        return torch.relu(self.conv_cat(torch.cat(xs, 1)) + self.conv_res(x))
+
+
+class PartialDecoder(nn.Module):
+    """Cascaded partial decoder with dual fg/bg heads (PraNet-V2).
+
+    Takes the three RFB maps deepest-first (1/32, 1/16, 1/8 scale).  The
+    internal x2 upsamples are bilinear with ``align_corners=True``.
+    """
+
+    def __init__(self, c: int, num_class: int):
+        super().__init__()
+        for i in range(1, 5):
+            setattr(self, f"conv_upsample{i}", ConvBN(c, c, 3, padding=1))
+        self.conv_upsample5 = ConvBN(2 * c, 2 * c, 3, padding=1)
+        self.conv_concat2 = ConvBN(2 * c, 2 * c, 3, padding=1)
+        self.conv_concat3 = ConvBN(3 * c, 3 * c, 3, padding=1)
+        self.conv4 = ConvBN(3 * c, 3 * c, 3, padding=1)
+        self.conv5_fg = nn.Conv2d(3 * c, num_class, 1)
+        self.conv5_bg = nn.Conv2d(3 * c, num_class, 1)
+
+    def forward(self, x1, x2, x3):
+        def up2(t):
+            h, w = t.shape[-2:]
+            return resize_bilinear(t, (2 * h, 2 * w), align_corners=True)
+
+        x2_1 = self.conv_upsample1(up2(x1)) * x2
+        x3_1 = (self.conv_upsample2(up2(up2(x1)))
+                * self.conv_upsample3(up2(x2)) * x3)
+        x2_2 = self.conv_concat2(
+            torch.cat([x2_1, self.conv_upsample4(up2(x1))], 1))
+        x3_2 = self.conv_concat3(
+            torch.cat([x3_1, self.conv_upsample5(up2(x2_2))], 1))
+        x = self.conv4(x3_2)
+        return self.conv5_fg(x), self.conv5_bg(x)
+
+
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init: LeCun-normal conv kernels (the JAX package's
+    initializer, untruncated), zero conv biases, identity BatchNorm."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator,
+                                           dtype=torch.float32)
+                               / math.sqrt(fan_in))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every convolution to ``dtype``; BatchNorm stays float32."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            m.to(dtype)
+    return model

@@ -1,0 +1,106 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
+compiled for Hopper (``sm_90a``) at first use into ``_build/`` beside the
+package (listed in ``.gitignore``).  A library's file name carries a hash of
+its source, the shared headers and the flags, so an edit rebuilds it and an
+unchanged tree reuses it.  Builds take seconds because no PyTorch header is
+included; the wrappers pass raw pointers and the stream as ``c_void_p``.
+
+Nothing here runs at import: the CPU test host has no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+# Must match the DType enum in csrc/common.cuh.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def sources() -> list[str]:
+    """Names of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> float:
+    """Compile the named sources (default: all) that lack a current library.
+
+    One nvcc process per source, all started together.  Returns the wall
+    seconds spent; raises with nvcc's output if any compile fails.
+    """
+    names = sources() if names is None else names
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, _target(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code."""
+    if err:
+        raise RuntimeError(f"{what}: kernel launch failed, cudaError_t {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
