@@ -6,16 +6,19 @@
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions, then builds every kernel in ``pranet2_tpu_torch/csrc`` with nvcc.
 2. Holds each kernel against its plain PyTorch version at the shapes the
-   serving path gives it, and times kernel, plain version and, where one
-   PyTorch call computes the same function, that call (CUDA events, median).
-3. Serves PraNet-V2 (Res2Net-50, full width, random weights from a seed) in
-   bf16 at 352x352, batch 16, through ``serve.BinaryPredictor.stream`` over
-   seeded synthetic images, with the kernels' launch counters set to 0 just
-   before and read just after; times the forward alone (CUDA events), its
-   device time by kernel (torch.profiler) and the host stages of one batch;
-   then checks the bf16 logits against a float32 forward of the same
-   weights, and the GPU's float32 forward against the CPU's (plain
-   versions) on a small input.
+   serving paths give it, and times kernel, plain version and, where one
+   PyTorch call computes the same function, that call (CUDA events, median);
+   for the PVT kernels, which no single call computes, it times the eager
+   chain of PyTorch calls instead (``library_chain_ms``).
+3. Serves each model of the port, PraNet-V2 on Res2Net-50 and on PVTv2-b2
+   (full width and depth, random weights from a seed), in bf16 at 352x352,
+   batch 16, through ``serve.BinaryPredictor.stream`` over seeded synthetic
+   images, with the kernels' launch counters set to 0 just before and read
+   just after; times the forward alone (CUDA events), its device time by
+   kernel (torch.profiler) and the host stages of one batch; then checks
+   the bf16 logits against a float32 forward of the same weights, and the
+   GPU's float32 forward against the CPU's (plain versions) on a small
+   input.
 4. Prints one JSON line of kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -34,12 +37,27 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+BF16_MMA_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
 BATCH, SIZE = 16, 352
 N_IMAGES = 40               # batches of 16, 16 and a padded 8
 GATE_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+# PVT kernels vs their plain versions (testing.excess): within a share of
+# the largest |kernel part|, the output less its residual (or, with the
+# stage LN, less LN(x)), plus half a step of each side's last rounding.
+# float32 differs by summation order only; bfloat16 rounds at the same
+# points, and an f32 ulp of difference can move a rounding by one bf16 step
+# (2^-7 relative at most), so two steps.  The stats are held to the
+# definition: (mu, rstd) of the kernel's own output, within 1e-4 of their
+# max.
+PVT_TOL = {"float32": 1e-4, "bfloat16": 2 * 2 ** -7}
+STATS_TOL = 1e-4
 MODEL_TOL = 0.1             # bf16 vs f32 logits, relative to max |f32|
 F32_TOL = 1e-3              # GPU f32 vs CPU f32, relative to max |CPU|;
                             # cuDNN may pick Winograd/FFT algorithms
+# PVTv2-b2 at 352x352: (tokens per side, dim, heads, mlp ratio, sr, depth)
+# by stage
+PVT_STAGES = ((88, 64, 1, 8, 8, 3), (44, 128, 2, 8, 4, 4),
+              (22, 320, 5, 4, 2, 6), (11, 512, 8, 4, 1, 3))
 
 
 def fail(msg: str) -> int:
@@ -66,10 +84,21 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(samples)
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int, mma_ops: int = 0,
+             mma_per_s: float = BF16_MMA_PER_S) -> tuple[float, str]:
+    """The largest of the times the work needs on each unit: bytes over the
+    HBM rate, ``ops`` over the float32 rate and ``mma_ops`` (matrix
+    products) over ``mma_per_s``.  The units run at once, so the busiest
+    one bounds the time; products at the float32 rate share its unit."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    work = {F32_OPS_PER_S: ops}
+    work[mma_per_s] = work.get(mma_per_s, 0) + mma_ops
+    t_ops = max(n / rate for rate, n in work.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def check_maxpool(torch, dev) -> dict:
@@ -143,6 +172,191 @@ def check_gate(torch, dev) -> dict:
             "library_ms": None, "shapes": shapes}
 
 
+def _pvt_params(torch, g, dev, dt, shapes):
+    """Seeded random tensors: LayerNorm parameters (1-D, suffix ``_ln``)
+    float32, the rest in ``dt``; weights scaled by 1/sqrt(fan in)."""
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=g, device=dev)
+        if name.endswith("_ln"):
+            t = 1.0 + 0.1 * t if name.startswith("w") else 0.1 * t
+            out[name] = t
+        else:
+            scale = shape[1] ** -0.5 if len(shape) == 2 else (
+                1 / 3 if len(shape) == 4 else 0.1)
+            out[name] = (t * scale).to(dt)
+    return out
+
+
+def _held(got, want, tol, what, base=None):
+    """Max |got - want| and ``testing.excess``, which holds ``got`` to
+    ``want`` within ``tol`` of the kernel's part, ``want - base``; raises
+    where it is over 1."""
+    from pranet2_tpu_torch.testing import excess
+
+    over = excess(got, want, base, tol)
+    if not over <= 1:
+        raise AssertionError(f"{what}: {over:.3g} times the tolerance")
+    return (got.float() - want.float()).abs().max().item(), over
+
+
+def _summary(name, source, replaces, rows):
+    """One kernel entry whose times are one forward's worth: each main-path
+    row times the calls a forward makes at its shape."""
+    main = [r for r in rows if r["main_path"]]
+    total = {k: sum(r[k] * r["calls_per_forward"] for r in main)
+             for k in ("ms", "plain_ms", "bound_ms", "library_chain_ms")}
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "excess": max(r["excess"] for r in rows), **total,
+            "bound_by": max(main, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None, "shapes": rows}
+
+
+def check_pvt_mlp(torch, dev) -> dict:
+    """``mlp_block`` at the four PVTv2-b2 stage shapes (bf16, stats and
+    final_ln modes) and one float32 case, against ``mlp_block_plain``.
+
+    The main-path times are one forward's worth: each stage's stats-mode
+    call times its non-last blocks plus its final_ln call (12 + 4)."""
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.ops import pvt_mlp
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    cases = [(si, dt, mode) for si in range(4) for dt in (torch.bfloat16,)
+             for mode in ("stats", "final_ln")]
+    cases.append((1, torch.float32, "stats"))
+    rows = []
+    for si, dt, mode in cases:
+        side, d, _, ratio, _, depth = PVT_STAGES[si]
+        c = d * ratio
+        p = _pvt_params(torch, g, dev, dt, {
+            "w_ln": (d,), "b_ln": (d,), "w1": (c, d), "b1": (c,),
+            "dw": (c, 1, 3, 3), "dwb": (c,), "w2": (d, c), "b2": (d,),
+            "wf_ln": (d,), "bf_ln": (d,)})
+        x = torch.randn((BATCH, side, side, d), generator=g,
+                        device=dev).to(dt)
+        args = (x, p["w_ln"], p["b_ln"], p["w1"], p["b1"], p["dw"], p["dwb"],
+                p["w2"], p["b2"], 1e-6)
+        kw = ({"stats_eps": 1e-6} if mode == "stats"
+              else {"final_ln": (p["wf_ln"], p["bf_ln"])})
+        got = pvt_mlp.mlp_block(*args, **kw)
+        want = pvt_mlp.mlp_block_plain(*args, **kw)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        what = f"mlp_block {mode} at {tuple(x.shape)} C {c} {name}"
+        if mode == "stats":
+            mu, rstd = pvt_mlp.ln_stats(got[0].float(), 1e-6)
+            _held(got[1], mu, STATS_TOL, what + " mu")
+            _held(got[2], rstd, STATS_TOL, what + " rstd")
+            got, want = got[0], want[0]
+        # the block without its MLP: fc2 zeroed leaves x, or LN(x)
+        base = pvt_mlp.mlp_block_plain(*args[:7], torch.zeros_like(args[7]),
+                                       torch.zeros_like(args[8]), 1e-6, **kw)
+        base = base[0] if mode == "stats" else base
+        err, over = _held(got, want, PVT_TOL[name], what, base)
+        m = x.numel() // d
+        # per token, outside the products: LN 7D, fc1 bias C, 9 taps 18C,
+        # dw bias C, GELU 17C, fc2 bias and residual 2D, the epilogue's
+        # statistics or LayerNorm 7D
+        b, by = bound_ms(nbytes(x, *p.values()) + nbytes(got)
+                         + (8 * m if mode == "stats" else 0),
+                         m * (16 * d + 37 * c), 4 * m * d * c,
+                         BF16_MMA_PER_S if dt == torch.bfloat16
+                         else F32_OPS_PER_S)
+        ln = (p["w_ln"].to(dt), p["b_ln"].to(dt))
+        w1, b1, dw, dwb, w2, b2 = (p[k] for k in ("w1", "b1", "dw", "dwb",
+                                                   "w2", "b2"))
+
+        def chain():
+            y = F.linear(F.layer_norm(x, (d,), *ln, 1e-6), w1, b1)
+            y = F.conv2d(y.permute(0, 3, 1, 2), dw, dwb, padding=1, groups=c)
+            return x + F.linear(F.gelu(y.permute(0, 2, 3, 1)), w2, b2)
+
+        calls = depth - 1 if mode == "stats" else 1
+        row = {"shape": list(x.shape), "hidden": c, "dtype": name,
+               "mode": mode, "main_path": dt == torch.bfloat16,
+               "calls_per_forward": calls, "max_abs_err": err,
+               "excess": over,
+               "ms": time_ms(lambda: pvt_mlp.mlp_block(*args, **kw)),
+               "plain_ms": time_ms(lambda: pvt_mlp.mlp_block_plain(*args,
+                                                                   **kw),
+                                   reps=3, rounds=3),
+               "bound_ms": b, "bound_by": by,
+               "library_chain_ms": time_ms(chain)}
+        rows.append(row)
+    return _summary("mlp_block", "pranet2_tpu_torch/csrc/pvt_mlp.cu",
+                    "pranet2_tpu/ops/pvt_mlp.py:112", rows)
+
+
+def check_sra_attention(torch, dev) -> dict:
+    """``sra_attention`` at the four PVTv2-b2 stage shapes (bf16, Tkv 121)
+    and one float32 case, against ``sra_attention_plain``.  The main-path
+    times are one forward's worth (3 + 4 + 6 + 3 calls)."""
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.ops import pvt_attn
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = [(si, torch.bfloat16) for si in range(4)]
+    cases.append((2, torch.float32))
+    rows = []
+    for si, dt in cases:
+        side, d, nh, _, sr, depth = PVT_STAGES[si]
+        tkv = (side // sr) ** 2
+        p = _pvt_params(torch, g, dev, dt, {
+            "w_ln": (d,), "b_ln": (d,), "wq": (d, d), "bq": (d,),
+            "wp": (d, d), "bp": (d,)})
+        x = torch.randn((BATCH, side, side, d), generator=g,
+                        device=dev).to(dt)
+        kv = torch.randn((BATCH, tkv, 2 * d), generator=g, device=dev).to(dt)
+        args = (x, p["w_ln"], p["b_ln"], p["wq"], p["bq"], kv, p["wp"],
+                p["bp"], nh, 1e-6)
+        got = pvt_attn.sra_attention(*args)
+        want = pvt_attn.sra_attention_plain(*args)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        err, over = _held(got, want, PVT_TOL[name],
+                          f"sra_attention at {tuple(x.shape)} nh {nh} Tkv {tkv} "
+                          f"{name}", base=x)
+        m = x.numel() // d
+        # per token, outside the products: LN 7D, q bias and scale 2D,
+        # softmax max/subtract/exp/sum 4 Tkv per head, the division D,
+        # proj bias and residual 2D
+        b, by = bound_ms(nbytes(x, kv, *p.values()) + nbytes(got),
+                         m * (12 * d + 4 * nh * tkv),
+                         4 * m * d * d + 4 * m * tkv * d,
+                         BF16_MMA_PER_S if dt == torch.bfloat16
+                         else F32_OPS_PER_S)
+        ln = (p["w_ln"].to(dt), p["b_ln"].to(dt))
+        hd = d // nh
+        heads = lambda t: t.reshape(BATCH, -1, nh, hd).transpose(1, 2)
+        k, v = (heads(t) for t in kv.split(d, dim=-1))
+
+        def chain():
+            y = F.layer_norm(x, (d,), *ln, 1e-6).reshape(BATCH, -1, d)
+            q = heads(F.linear(y, p["wq"], p["bq"]))
+            o = F.scaled_dot_product_attention(q, k, v)
+            o = o.transpose(1, 2).reshape(x.shape)
+            return x + F.linear(o, p["wp"], p["bp"])
+
+        row = {"shape": list(x.shape), "heads": nh, "tkv": tkv,
+               "dtype": name, "main_path": dt == torch.bfloat16,
+               "calls_per_forward": depth,
+               "max_abs_err": err, "excess": over,
+               "ms": time_ms(lambda: pvt_attn.sra_attention(*args)),
+               "plain_ms": time_ms(
+                   lambda: pvt_attn.sra_attention_plain(*args), reps=3,
+                   rounds=3),
+               "bound_ms": b, "bound_by": by,
+               "library_chain_ms": time_ms(chain)}
+        rows.append(row)
+    return _summary("sra_attention", "pranet2_tpu_torch/csrc/pvt_attn.cu",
+                    "pranet2_tpu/ops/pvt_attn.py:43", rows)
+
+
 def synthetic_images(np, n: int) -> list:
     rng = np.random.default_rng(0)
     return [rng.integers(0, 256, (int(rng.integers(288, 577)),
@@ -150,28 +364,55 @@ def synthetic_images(np, n: int) -> list:
                          dtype=np.uint8) for _ in range(n)]
 
 
-def run_main_path(torch, np, state_dict) -> tuple[dict, object]:
-    """Serve the synthetic images; count launches over exactly that run."""
-    from pranet2_tpu_torch.ops import dsra, stem
+# launches per forward of each served model, by kernel
+PATHS = {"pranet_v2": {"max_pool3x3s2": 1, "dsra_gate": 3, "mlp_block": 0,
+                       "sra_attention": 0},
+         "pvt_pranet_v2": {"max_pool3x3s2": 0, "dsra_gate": 3,
+                           "mlp_block": 16, "sra_attention": 16}}
+MLP_MODES = {"pranet_v2": {"plain": 0, "stats": 0, "final_ln": 0},
+             "pvt_pranet_v2": {"plain": 0, "stats": 12, "final_ln": 4}}
+
+
+def _wrappers():
+    from pranet2_tpu_torch.ops import dsra, pvt_attn, pvt_mlp, stem
+
+    return {"max_pool3x3s2": stem.max_pool3x3s2, "dsra_gate": dsra.dsra_gate,
+            "mlp_block": pvt_mlp.mlp_block,
+            "sra_attention": pvt_attn.sra_attention}
+
+
+def _reset_counts():
+    for f in _wrappers().values():
+        f.launches = 0
+        if hasattr(f, "mode_launches"):
+            f.mode_launches = dict.fromkeys(f.mode_launches, 0)
+
+
+def run_path(torch, np, name, state_dict) -> tuple[dict, object]:
+    """Serve the synthetic images with model ``name``; count launches over
+    exactly that run."""
     from pranet2_tpu_torch.serve import BinaryPredictor
 
     images = synthetic_images(np, N_IMAGES)
-    pred = BinaryPredictor("pranet_v2", state_dict, batch_size=BATCH,
+    pred = BinaryPredictor(name, state_dict, batch_size=BATCH,
                            testsize=SIZE, dtype=torch.bfloat16)
     try:
         pred.warmup()
-        stem.max_pool3x3s2.launches = 0
-        dsra.dsra_gate.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         masks = list(pred.stream(images))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {"max_pool3x3s2": stem.max_pool3x3s2.launches,
-                  "dsra_gate": dsra.dsra_gate.launches}
+        wrappers = _wrappers()
+        counts = {k: f.launches for k, f in wrappers.items()}
+        modes = dict(wrappers["mlp_block"].mode_launches)
         forwards = -(-N_IMAGES // BATCH)
-        if counts != {"max_pool3x3s2": forwards, "dsra_gate": 3 * forwards}:
-            raise AssertionError(f"launches {counts} over {forwards} forwards:"
-                                 " expected 1 maxpool and 3 gates each")
+        want = {k: n * forwards for k, n in PATHS[name].items()}
+        want_modes = {k: n * forwards for k, n in MLP_MODES[name].items()}
+        if counts != want or modes != want_modes:
+            raise AssertionError(f"{name}: launches {counts}, MLP modes "
+                                 f"{modes} over {forwards} forwards; "
+                                 f"expected {want}, {want_modes}")
         if len(masks) != len(images):
             raise AssertionError(f"{len(masks)} masks for {len(images)} images")
         for im, m in zip(images, masks):
@@ -183,7 +424,8 @@ def run_main_path(torch, np, state_dict) -> tuple[dict, object]:
             fwd_ms = time_ms(lambda: pred.model(batch), reps=10, rounds=5)
             logits = sum(pred.model(batch)[:4]).float()
             device = device_time(torch, lambda: pred.model(batch))
-        return {"launches": counts, "forwards": forwards,
+        return {"model": name, "launches": counts, "mlp_modes": modes,
+                "forwards": forwards,
                 "stream_img_per_s": N_IMAGES / seconds,
                 "forward_ms": fwd_ms,
                 "forward_img_per_s": BATCH / fwd_ms * 1e3,
@@ -233,8 +475,9 @@ def device_time(torch, fn, forwards: int = 5) -> dict:
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     if not rows:
         return {"busy_ms": None, "ported_kernels_ms": None, "top": []}
-    ported = sum(ms for k, ms in rows
-                 if "maxpool3x3s2" in k or "dsra_gate" in k)
+    ported = sum(ms for k, ms in rows if any(
+        n in k for n in ("maxpool3x3s2", "dsra_gate", "fc1_kernel",
+                         "dw_gelu_kernel", "fc2_kernel", "sra_kernel")))
     return {"busy_ms": sum(ms for _, ms in rows), "ported_kernels_ms": ported,
             "top": [{"name": k[:90], "ms": ms} for k, ms in rows[:10]]}
 
@@ -244,17 +487,19 @@ def rel_err(a, b) -> float:
             / b.float().abs().max().clamp_min(1e-6)).item()
 
 
-def check_reference(torch, state_dict, batch, logits_bf16) -> dict:
+def check_reference(torch, name, state_dict, batch, logits_bf16) -> dict:
     """bf16 serving logits vs float32 on the card (TF32 off); float32 on the
-    card (kernels) vs float32 on the CPU (plain versions), small input."""
+    card vs float32 on the CPU (plain versions), small input.  For PVT the
+    float32 path is the module chain, so the first check holds the bf16
+    kernels end to end against code that does not use them."""
     from pranet2_tpu_torch import get_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    f32 = get_model("pranet_v2", device=batch.device)
+    f32 = get_model(name, device=batch.device)
     f32.load_state_dict(state_dict)
     f32.eval()
-    cpu = get_model("pranet_v2", device="cpu")
+    cpu = get_model(name, device="cpu")
     cpu.load_state_dict(state_dict)
     cpu.eval()
     with torch.inference_mode():
@@ -268,9 +513,9 @@ def check_reference(torch, state_dict, batch, logits_bf16) -> dict:
            "gpu_vs_cpu_f32_rel_err": max(rel_err(g.cpu(), c) for g, c
                                          in zip(gpu_maps, cpu_maps))}
     if out["bf16_vs_f32_rel_err"] > MODEL_TOL:
-        raise AssertionError(f"bf16 logits off: {out}")
+        raise AssertionError(f"{name}: bf16 logits off: {out}")
     if out["gpu_vs_cpu_f32_rel_err"] > F32_TOL:
-        raise AssertionError(f"GPU f32 maps off the CPU's: {out}")
+        raise AssertionError(f"{name}: GPU f32 maps off the CPU's: {out}")
     return out
 
 
@@ -302,22 +547,29 @@ def main() -> int:
     print(f"built kernels {_build.sources()} in {_build.build():.1f} s")
     dev = torch.device("cuda")
 
-    kernels = [check_maxpool(torch, dev), check_gate(torch, dev)]
+    kernels = [check_maxpool(torch, dev), check_gate(torch, dev),
+               check_pvt_mlp(torch, dev), check_sra_attention(torch, dev)]
     print("kernels checked against their plain versions")
 
     from pranet2_tpu_torch import get_model
 
-    state_dict = get_model("pranet_v2", device="cpu",
-                           generator=torch.Generator().manual_seed(0)
-                           ).state_dict()
-    model, (batch, logits_bf16) = run_main_path(torch, np, state_dict)
+    models = []
+    for name in PATHS:
+        state_dict = get_model(name, device="cpu",
+                               generator=torch.Generator().manual_seed(0)
+                               ).state_dict()
+        model, (batch, logits_bf16) = run_path(torch, np, name, state_dict)
+        model.update(check_reference(torch, name, state_dict, batch,
+                                     logits_bf16))
+        print(f"{name} bf16 {SIZE}x{SIZE} batch {BATCH}: forward "
+              f"{model['forward_img_per_s']:.1f} img/s, stream "
+              f"{model['stream_img_per_s']:.1f} img/s on {card}")
+        print("model: " + json.dumps(model))
+        models.append(model)
     for k in kernels:
-        k["launches"] = model["launches"][k["name"]]
-    model.update(check_reference(torch, state_dict, batch, logits_bf16))
-    print(f"PraNet-V2 bf16 {SIZE}x{SIZE} batch {BATCH}: forward "
-          f"{model['forward_img_per_s']:.1f} img/s, stream "
-          f"{model['stream_img_per_s']:.1f} img/s on {card}")
-    print("model: " + json.dumps(model))
+        by_path = {m["model"]: m["launches"][k["name"]] for m in models}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

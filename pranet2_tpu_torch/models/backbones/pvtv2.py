@@ -1,0 +1,213 @@
+"""PVTv2 backbone, the PVT-PraNet encoder: a pyramid ViT with spatial-
+reduction attention.
+
+Port of ``pranet2_tpu/models/backbones/pvtv2.py`` with the reference's
+attribute names (``patch_embed{1-4}.{proj,norm}``,
+``block{1-4}.{i}.{norm1,attn.{q,kv,proj,sr,norm},norm2,mlp.{fc1,dwconv.dwconv,fc2}}``,
+``norm{1-4}``).
+
+* 4 stages; each = overlapping patch embed (7x7/4, then 3x3/2 convs) + LN
+  (eps 1e-5) -> N blocks -> LN (eps 1e-6).
+* Block = x + SRA(LN1 x), then x + MLP(LN2 x).  SRA: queries from every
+  token; K/V from a stride-``sr`` ``sr`` x ``sr`` conv + LN (eps 1e-5) of
+  LN1's output (LN1's output itself at sr = 1, stage 4), then the ``kv``
+  Linear.  MLP: fc1 -> depthwise 3x3 -> GELU -> fc2.
+* Inside the backbone tokens stay channels-last, (N, H, W, C) contiguous,
+  which LayerNorm, the Linears and both kernels want; the convolutions see
+  them as NCHW views in channels-last memory.  The four stage maps come out
+  NCHW for the heads.
+
+Routing follows the JAX package's, decided by the compute dtype (the patch
+embed's weight type), not by the device:
+
+* bfloat16: each block's attention half goes through
+  ``ops.pvt_attn.sra_attention`` with the K/V path in plain PyTorch, and its
+  MLP half through ``ops.pvt_mlp.mlp_block``: "stats" mode in the non-last
+  blocks of a stage, whose (mu, rstd) feed the next block's K/V-path LN1,
+  and "final_ln" mode in the last block, which applies ``norm{s}`` in its
+  epilogue (``pranet2_tpu/models/backbones/pvtv2.py:263-312,380-403,
+  495-526``).
+* otherwise (float32): the module chain, with exact-erf GELU and plain
+  softmax attention.
+
+The JAX package's space-to-depth stage-1 patch embed is a TPU restructure of
+the same convolution and is not carried over.  Drop path is the identity at
+eval; training comes later.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pranet2_tpu_torch.nn import LayerNorm
+from pranet2_tpu_torch.ops.pvt_attn import sra_attention
+from pranet2_tpu_torch.ops.pvt_mlp import ln_stats, mlp_block
+
+PVT_CONFIGS = {
+    "b0": dict(embed_dims=(32, 64, 160, 256), depths=(2, 2, 2, 2),
+               num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4)),
+    "b1": dict(embed_dims=(64, 128, 320, 512), depths=(2, 2, 2, 2),
+               num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4)),
+    "b2": dict(embed_dims=(64, 128, 320, 512), depths=(3, 4, 6, 3),
+               num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4)),
+    "b3": dict(embed_dims=(64, 128, 320, 512), depths=(3, 4, 18, 3),
+               num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4)),
+    "b4": dict(embed_dims=(64, 128, 320, 512), depths=(3, 8, 27, 3),
+               num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4)),
+    "b5": dict(embed_dims=(64, 128, 320, 512), depths=(3, 6, 40, 3),
+               num_heads=(1, 2, 5, 8), mlp_ratios=(4, 4, 4, 4)),
+}
+
+SR_RATIOS = (8, 4, 2, 1)
+
+
+def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A convolution over channels-last tokens (N, H, W, C), tokens out."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+
+
+class OverlapPatchEmbed(nn.Module):
+    def __init__(self, cin: int, dim: int, patch: int, stride: int):
+        super().__init__()
+        self.proj = nn.Conv2d(cin, dim, patch, stride, patch // 2)
+        self.norm = LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x):
+        """NCHW map in, channels-last tokens (N, H, W, dim) out."""
+        return self.norm(self.proj(x).permute(0, 2, 3, 1).contiguous())
+
+
+class SRAttention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.sr_ratio = sr_ratio
+        self.q = nn.Linear(dim, dim)
+        self.kv = nn.Linear(dim, 2 * dim)
+        self.proj = nn.Linear(dim, dim)
+        if sr_ratio > 1:
+            self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio)
+            self.norm = LayerNorm(dim, eps=1e-5)
+
+    def kv_tokens(self, y):
+        """The K/V path on LN1's output: (N, Tkv, 2D)."""
+        if self.sr_ratio > 1:
+            y = self.norm(_conv_nhwc(self.sr, y))
+        return self.kv(y).flatten(1, 2)
+
+    def forward(self, y):
+        """Module chain: y is LN1's output, (N, H, W, D)."""
+        n, h, w, d = y.shape
+        nh = self.num_heads
+        hd = d // nh
+        q = self.q(y).reshape(n, h * w, nh, hd).transpose(1, 2)
+        k, v = (t.reshape(n, -1, nh, hd).transpose(1, 2)
+                for t in self.kv_tokens(y).split(d, dim=-1))
+        p = torch.softmax((q @ k.transpose(-1, -2)) * hd ** -0.5, dim=-1)
+        o = (p @ v).transpose(1, 2).reshape(n, h, w, d)
+        return self.proj(o)
+
+
+class DWConv(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(dim, dim, 3, 1, 1, groups=dim)
+
+    def forward(self, x):
+        return _conv_nhwc(self.dwconv, x)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.dwconv = DWConv(hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.dwconv(self.fc1(x))))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
+                 sr_ratio: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=1e-6)
+        self.attn = SRAttention(dim, num_heads, sr_ratio)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, dim * mlp_ratio)
+
+    def forward(self, x):
+        """Module chain (float32 path)."""
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+    def forward_kernels(self, x, ln1_stats=None, final_norm=None):
+        """Both halves through the kernels (bfloat16 path).
+
+        ``ln1_stats``: the previous block's (mu, rstd) of x, which the K/V
+        path's LN1 applies instead of reducing x again.  ``final_norm``: the
+        stage-end LayerNorm, applied in the MLP's epilogue.  Returns the
+        block output and its (mu, rstd), or None after ``final_norm``.
+        """
+        n1, attn, n2, mlp = self.norm1, self.attn, self.norm2, self.mlp
+        if ln1_stats is None:
+            ln1_stats = ln_stats(x.float(), n1.eps)
+        mu, rstd = (s[..., None] for s in ln1_stats)
+        y = ((x.float() - mu) * rstd * n1.weight + n1.bias).to(x.dtype)
+        x = sra_attention(x, n1.weight, n1.bias, attn.q.weight, attn.q.bias,
+                          attn.kv_tokens(y), attn.proj.weight,
+                          attn.proj.bias, attn.num_heads, n1.eps)
+        args = (x, n2.weight, n2.bias, mlp.fc1.weight, mlp.fc1.bias,
+                mlp.dwconv.dwconv.weight, mlp.dwconv.dwconv.bias,
+                mlp.fc2.weight, mlp.fc2.bias, n2.eps)
+        if final_norm is not None:
+            return mlp_block(*args, final_ln=(final_norm.weight,
+                                              final_norm.bias),
+                             final_eps=final_norm.eps), None
+        out, mu, rstd = mlp_block(*args, stats_eps=n1.eps)
+        return out, (mu, rstd)
+
+
+class PVTv2(nn.Module):
+    """Returns the 4-stage NCHW feature pyramid (strides 4/8/16/32)."""
+
+    def __init__(self, embed_dims=(64, 128, 320, 512), depths=(3, 4, 6, 3),
+                 num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4)):
+        super().__init__()
+        cin = 3
+        for s, dim in enumerate(embed_dims, start=1):
+            patch, stride = (7, 4) if s == 1 else (3, 2)
+            setattr(self, f"patch_embed{s}",
+                    OverlapPatchEmbed(cin, dim, patch, stride))
+            setattr(self, f"block{s}", nn.ModuleList(
+                Block(dim, num_heads[s - 1], mlp_ratios[s - 1],
+                      SR_RATIOS[s - 1]) for _ in range(depths[s - 1])))
+            setattr(self, f"norm{s}", LayerNorm(dim, eps=1e-6))
+            cin = dim
+
+    def forward(self, x):
+        kernels = self.patch_embed1.proj.weight.dtype == torch.bfloat16
+        outs = []
+        for s in range(1, 5):
+            x = getattr(self, f"patch_embed{s}")(x)
+            blocks, norm = getattr(self, f"block{s}"), getattr(self, f"norm{s}")
+            if kernels:
+                stats = None
+                for i, blk in enumerate(blocks):
+                    last = i == len(blocks) - 1
+                    x, stats = blk.forward_kernels(
+                        x, stats, norm if last else None)
+            else:
+                for blk in blocks:
+                    x = blk(x)
+                x = norm(x)
+            x = x.permute(0, 3, 1, 2).contiguous()
+            outs.append(x)
+        return tuple(outs)
+
+
+def pvt_v2(variant: str = "b2") -> PVTv2:
+    return PVTv2(**PVT_CONFIGS[variant])

@@ -1,8 +1,9 @@
-"""PraNet-V2 (DSRA), the binary polyp model, on Res2Net-50-v1b.
+"""PraNet-V2 (DSRA), the binary polyp model, on Res2Net-50-v1b or PVTv2-b2.
 
 Port of ``pranet2_tpu/models/pranet.py::PraNetV2`` with the reference's
 attribute names: ``backbone.*``, ``rfb{2,3,4}_1``, ``agg1``,
 ``ra{4,3,2}_conv{N}[_fg|_bg]`` and the grayscale stem ``conv.{0,1}``.
+``pranet_v2`` takes the Res2Net-50-v1b encoder, ``pvt_pranet_v2`` PVTv2-b2.
 
 Encoder stages 2-4 -> three RFBs (32 ch) -> dual-head partial decoder ->
 coarse fg/bg maps at 1/8 scale.  Each DSRA branch runs its conv trunk on the
@@ -17,33 +18,41 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pranet2_tpu_torch.models.backbones.pvtv2 import pvt_v2
 from pranet2_tpu_torch.models.backbones.res2net import Res2Net
 from pranet2_tpu_torch.models.registry import register_model
 from pranet2_tpu_torch.nn import RFB, ConvBN, PartialDecoder
 from pranet2_tpu_torch.ops import dsra_gate, resize_bilinear
 
-# level -> (stage channels, trunk width, trunk convs, trunk kernel,
-#           head kernel, head index in the torch names)
-_DSRA = {4: (2048, 256, 3, 5, 1, 5), 3: (1024, 64, 2, 3, 3, 4),
-         2: (512, 64, 2, 3, 3, 4)}
+# level -> (trunk width, trunk convs, trunk kernel, head kernel,
+#           head index in the torch names)
+_DSRA = {4: (256, 3, 5, 1, 5), 3: (64, 2, 3, 3, 4), 2: (64, 2, 3, 3, 4)}
+# backbone -> (constructor, channels of stages 2, 3 and 4)
+_BACKBONES = {"res2net50": (lambda: Res2Net(layers=(3, 4, 6, 3)),
+                            (512, 1024, 2048)),
+              "pvt_v2_b2": (lambda: pvt_v2("b2"), (128, 320, 512))}
 
 
 class PraNetV2(nn.Module):
-    def __init__(self, channel: int = 32, num_class: int = 1,
-                 use_softmax: bool = True):
+    def __init__(self, backbone: str = "res2net50", channel: int = 32,
+                 num_class: int = 1, use_softmax: bool = True):
         super().__init__()
+        if backbone not in _BACKBONES:
+            raise ValueError(f"unknown backbone {backbone!r}; available: "
+                             f"{sorted(_BACKBONES)}")
+        make, widths = _BACKBONES[backbone]
+        widths = dict(zip((2, 3, 4), widths))
         self.use_softmax = use_softmax
         # grayscale stem, applied to 1-channel input only
         self.conv = nn.Sequential(nn.Conv2d(1, 3, 1),
                                   nn.BatchNorm2d(3, eps=1e-5, momentum=0.1),
                                   nn.ReLU())
-        self.backbone = Res2Net(layers=(3, 4, 6, 3))
-        self.rfb2_1 = RFB(512, channel)
-        self.rfb3_1 = RFB(1024, channel)
-        self.rfb4_1 = RFB(2048, channel)
+        self.backbone = make()
+        for lvl, cin in widths.items():
+            setattr(self, f"rfb{lvl}_1", RFB(cin, channel))
         self.agg1 = PartialDecoder(channel, num_class)
-        for lvl, (cin, mid, n_convs, k, hk, hi) in _DSRA.items():
-            setattr(self, f"ra{lvl}_conv1", ConvBN(cin, mid, 1))
+        for lvl, (mid, n_convs, k, hk, hi) in _DSRA.items():
+            setattr(self, f"ra{lvl}_conv1", ConvBN(widths[lvl], mid, 1))
             for i in range(2, 2 + n_convs):
                 setattr(self, f"ra{lvl}_conv{i}",
                         ConvBN(mid, mid, k, padding=k // 2))
@@ -53,7 +62,7 @@ class PraNetV2(nn.Module):
 
     def _dsra_branch(self, lvl: int, x):
         """Trunk convs on the raw stage, then the fg/bg heads."""
-        _, _, n_convs, _, _, hi = _DSRA[lvl]
+        _, n_convs, _, _, hi = _DSRA[lvl]
         x = getattr(self, f"ra{lvl}_conv1")(x)
         for i in range(2, 2 + n_convs):
             x = torch.relu(getattr(self, f"ra{lvl}_conv{i}")(x))
@@ -61,7 +70,7 @@ class PraNetV2(nn.Module):
                 getattr(self, f"ra{lvl}_conv{hi}_bg")(x))
 
     def forward(self, x):
-        x = x.to(self.backbone.conv1[0].weight.dtype)
+        x = x.to(self.conv[0].weight.dtype)  # every conv has the compute type
         if x.shape[1] == 1:
             x = self.conv(x)
         h, w = x.shape[-2:]
@@ -85,4 +94,9 @@ class PraNetV2(nn.Module):
 
 @register_model("pranet_v2")
 def _pranet_v2(**kw):
-    return PraNetV2(**kw)
+    return PraNetV2(backbone="res2net50", **kw)
+
+
+@register_model("pvt_pranet_v2")
+def _pvt_pranet_v2(**kw):
+    return PraNetV2(backbone="pvt_v2_b2", **kw)

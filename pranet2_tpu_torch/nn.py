@@ -6,9 +6,12 @@ Port of ``pranet2_tpu/nn.py``: ``ConvBN`` (the reference's ``BasicConv2d``),
 and ``splitconv`` paths are TPU layout rewrites of the same convolutions and
 are not carried over.
 
-Reduced precision: ``set_compute_dtype`` casts the convolutions and keeps
-every BatchNorm in float32, as the JAX package keeps its parameters and
-statistics in float32 while computing in bfloat16.
+``LayerNorm`` is flax's ``LayerNorm(dtype=...)``: float32 statistics in the
+E[x^2] - mu^2 form, float32 parameters, the result in the input's type.
+
+Reduced precision: ``set_compute_dtype`` casts the convolutions and Linears
+and keeps every BatchNorm and LayerNorm in float32, as the JAX package keeps
+its parameters and statistics in float32 while computing in bfloat16.
 """
 
 from __future__ import annotations
@@ -19,6 +22,22 @@ import torch
 from torch import nn
 
 from pranet2_tpu_torch.ops import resize_bilinear
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis with flax's arithmetic.
+
+    Statistics in float32 with var = E[x^2] - mu^2 (clipped at 0), then
+    ``(x - mu) * (rsqrt(var + eps) * weight) + bias`` and a cast back to the
+    input's type.  The parameters stay float32 whatever the input's type.
+    """
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
 
 
 class ConvBN(nn.Module):
@@ -93,25 +112,27 @@ class PartialDecoder(nn.Module):
 
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init: LeCun-normal conv kernels (the JAX package's
-    initializer, untruncated), zero conv biases, identity BatchNorm."""
+    """Seeded random init: LeCun-normal conv and Linear kernels (the JAX
+    package's initializer, untruncated), zero biases, identity BatchNorm and
+    LayerNorm."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator,
                                            dtype=torch.float32)
                                / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
     return model
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast every convolution to ``dtype``; BatchNorm stays float32."""
+    """Cast every convolution and Linear to ``dtype``; BatchNorm and
+    LayerNorm stay float32."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
     return model

@@ -1,0 +1,37 @@
+"""Holding a kernel's output to its plain version's.
+
+A PVT block returns ``x + f(x)`` (or a LayerNorm of it), and the residual x
+is often ten times larger than what the kernel computes.  A tolerance taken
+relative to the output would let a fault in f(x) as large as a bf16 step of
+x pass, so ``excess`` scales it by the kernel's own part instead: the
+difference between the output and ``base``, the same block's output with
+that part taken away (x itself for a residual block).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def step(t: torch.Tensor) -> torch.Tensor:
+    """Float32 gap between each element of ``t`` and the next value of
+    ``t``'s floating type away from zero."""
+    _, e = torch.frexp(t.float())
+    return torch.exp2(e.float() - 1) * torch.finfo(t.dtype).eps
+
+
+def excess(got: torch.Tensor, want: torch.Tensor,
+           base: torch.Tensor | None, tol: float) -> float:
+    """max over elements of |got - want| / allowed, where
+
+        allowed = tol * max|want - base| + (step(want) + step(got)) / 2
+
+    ``tol`` bounds the error of the kernel's part relative to its largest
+    value (with ``base`` None the whole output is the kernel's); the half
+    steps let each side's last rounding, that of the output itself, fall
+    either way.  At most 1 means held.
+    """
+    g, w = got.float(), want.float()
+    scale = (w if base is None else w - base.float()).abs().max()
+    allowed = tol * scale + (step(want) + step(got)) / 2
+    return ((g - w).abs() / allowed).max().item()

@@ -2,11 +2,12 @@
 
 ``state_dict_from_jax`` takes a ``{'params': ..., 'batch_stats': ...}`` tree
 of numpy arrays and returns the port's ``state_dict``: conv kernels HWIO ->
-OIHW, BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
-running_var``.  The names are the inverse of the JAX package's
-``res2net_key_map`` and ``pranet_key_map``; the port keeps the reference
-checkpoint's names, so a reference ``.pth`` loads with plain
-``load_state_dict``.
+OIHW, Dense kernels (in, out) -> Linear (out, in), BatchNorm and LayerNorm
+``scale/bias`` -> ``weight/bias`` and BatchNorm ``mean/var`` ->
+``running_mean/running_var``.  The names are the inverse of the JAX
+package's ``res2net_key_map``, ``pvtv2_key_map`` and ``pranet_key_map``;
+the port keeps the reference checkpoint's names, so a reference ``.pth``
+loads with plain ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ _RENAMES = (
     (r"\.(convs|bns|downsample)_(\d)$", r".\1.\2"),
     (r"\.branch(\d)_(\d)\.", r".branch\1.\2."),
     (r"^ra([234])\.", r"ra\1_"),
+    (r"\.block(\d)_(\d+)\.", r".block\1.\2."),
+    (r"\.patch_embed(\d)_(proj|norm)$", r".patch_embed\1.\2"),
+    (r"\.mlp\.dwconv$", ".mlp.dwconv.dwconv"),
 )
 
 
@@ -51,7 +55,8 @@ def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
     for path, leaf in _flatten(variables["params"]):
         prefix, kind = torch_prefix(path[:-1]), path[-1]
         if kind == "kernel":
-            sd[f"{prefix}.weight"] = np.transpose(leaf, (3, 2, 0, 1))
+            axes = (3, 2, 0, 1) if leaf.ndim == 4 else (1, 0)
+            sd[f"{prefix}.weight"] = np.transpose(leaf, axes)
         elif kind == "scale":
             sd[f"{prefix}.weight"] = leaf
         elif kind == "bias":

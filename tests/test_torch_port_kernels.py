@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from pranet2_tpu_torch import ops
-from pranet2_tpu_torch.ops import dsra, stem
+from pranet2_tpu_torch.ops import dsra, pvt_attn, pvt_mlp, stem
+from pranet2_tpu_torch.testing import excess
 
 
 @pytest.fixture
@@ -73,3 +74,179 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         ops.dsra_gate(x, x.half(), x)
     with pytest.raises(ValueError):
         ops.dsra_gate(x, x[:, :2], x[:, :2])
+
+
+# PVT kernels vs their plain versions (testing.excess): within a share of
+# the largest |kernel part|, the output less its residual (or, with the
+# stage LN, less LN(x)), plus half a step of each side's last rounding.
+# float32 differs by summation order only; bfloat16 rounds at the same
+# points, and an f32 ulp of difference can move one rounding by a bf16 step,
+# so two steps.  The (mu, rstd) are held to their definition, the
+# statistics of the kernel's own output.
+PVT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * 2 ** -7}
+
+
+def _rand(g, shape, dtype, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=g, device=g.device) * scale
+            + shift).to(dtype)
+
+
+def _assert_held(got, want, tol, base=None):
+    over = excess(got, want, base, tol)
+    assert over <= 1, (over, (got.float() - want.float()).abs().max().item())
+
+
+def _mlp_base(args, kw):
+    """The block without its MLP: fc2 zeroed leaves x, or LN(x)."""
+    out = pvt_mlp.mlp_block_plain(*args[:7], torch.zeros_like(args[7]),
+                                  torch.zeros_like(args[8]), *args[9:], **kw)
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _mlp_args(g, n, h, w, d, c, dtype):
+    f32 = torch.float32
+    return (_rand(g, (n, h, w, d), dtype), _rand(g, (d,), f32, 0.1, 1.0),
+            _rand(g, (d,), f32, 0.1), _rand(g, (c, d), dtype, d ** -0.5),
+            _rand(g, (c,), dtype, 0.1), _rand(g, (c, 1, 3, 3), dtype, 1 / 3),
+            _rand(g, (c,), dtype, 0.1), _rand(g, (d, c), dtype, c ** -0.5),
+            _rand(g, (d,), dtype, 0.1), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "stats", "final_ln"])
+@pytest.mark.parametrize("n,h,w,d,c", [
+    (2, 88, 88, 64, 512),      # stage 1 of PVTv2-b2 at 352x352, batch 2
+    (1, 7, 13, 64, 256),       # W not a multiple of any tile
+    (2, 11, 11, 320, 1280),    # C = 1280; 242 rows, not a multiple of 32
+    (3, 5, 3, 32, 64),         # 45 rows, a ragged last tile everywhere
+    (1, 1, 1, 512, 2048),      # one token
+])
+def test_mlp_kernel_matches_plain(cuda, n, h, w, d, c, mode, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n * h * w + d)
+    args = _mlp_args(g, n, h, w, d, c, dtype)
+    kw = {"plain": {}, "stats": {"stats_eps": 1e-6},
+          "final_ln": {"final_ln": (_rand(g, (d,), torch.float32, 0.1, 1.0),
+                                    _rand(g, (d,), torch.float32, 0.1))}}[mode]
+    before = (pvt_mlp.mlp_block.launches,
+              pvt_mlp.mlp_block.mode_launches[mode])
+    got = pvt_mlp.mlp_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert (pvt_mlp.mlp_block.launches,
+            pvt_mlp.mlp_block.mode_launches[mode]) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = pvt_mlp.mlp_block_plain(*args, **kw)
+    if mode == "stats":
+        mu, rstd = pvt_mlp.ln_stats(got[0].float(), 1e-6)
+        _assert_held(got[1], mu, 1e-4)
+        _assert_held(got[2], rstd, 1e-4)
+        got, want = got[0], want[0]
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_held(got, want, PVT_TOL[dtype], _mlp_base(args, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,d,nh,tkv", [
+    (2, 88, 88, 64, 1, 121),   # stage 1 of PVTv2-b2 at 352x352, batch 2
+    (2, 9, 13, 320, 5, 7),     # nh = 5, W odd, 117 rows a ragged tile
+    (1, 4, 4, 512, 8, 1),      # sr = 8 on a tiny map: one K/V token
+    (3, 5, 7, 128, 2, 33),
+])
+def test_sra_kernel_matches_plain(cuda, n, h, w, d, nh, tkv, dtype):
+    g = torch.Generator(device=cuda).manual_seed(h * w + d + tkv)
+    f32 = torch.float32
+    args = (_rand(g, (n, h, w, d), dtype), _rand(g, (d,), f32, 0.1, 1.0),
+            _rand(g, (d,), f32, 0.1), _rand(g, (d, d), dtype, d ** -0.5),
+            _rand(g, (d,), dtype, 0.1), _rand(g, (n, tkv, 2 * d), dtype),
+            _rand(g, (d, d), dtype, d ** -0.5), _rand(g, (d,), dtype, 0.1),
+            nh, 1e-6)
+    before = pvt_attn.sra_attention.launches
+    got = pvt_attn.sra_attention(*args)
+    torch.cuda.synchronize()
+    assert pvt_attn.sra_attention.launches == before + 1
+    want = pvt_attn.sra_attention_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_held(got, want, PVT_TOL[dtype], args[0])
+
+
+@pytest.mark.cuda
+def test_pvt_wrappers_refuse_bad_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    args = list(_mlp_args(g, 1, 4, 4, 32, 64, torch.bfloat16))
+    with pytest.raises(TypeError):      # fp16 is not taken
+        pvt_mlp.mlp_block(*[a.half() if torch.is_tensor(a) else a
+                            for a in args])
+    with pytest.raises(TypeError):      # LayerNorm parameters not float32
+        pvt_mlp.mlp_block(args[0], args[1].bfloat16(), *args[2:])
+    with pytest.raises(ValueError):     # x not channels-last contiguous
+        pvt_mlp.mlp_block(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError):     # C not a multiple of 16
+        pvt_mlp.mlp_block(*args[:3], args[3][:40], args[4][:40],
+                          args[5][:40], args[6][:40], args[7][:, :40],
+                          *args[8:])
+    with pytest.raises(ValueError):     # weights on the CPU
+        pvt_mlp.mlp_block(*args[:3], args[3].cpu(), *args[4:])
+    with pytest.raises(ValueError):
+        pvt_mlp.mlp_block(*args, stats_eps=1e-6, final_ln=(args[1], args[2]))
+    x, w_ln, b_ln = args[:3]
+    wq = _rand(g, (32, 32), torch.bfloat16)
+    bq = _rand(g, (32,), torch.bfloat16)
+    kv = _rand(g, (1, 4, 64), torch.bfloat16)
+    with pytest.raises(ValueError):     # 32 channels in 3 heads
+        pvt_attn.sra_attention(x, w_ln, b_ln, wq, bq, kv, wq, bq, 3)
+    with pytest.raises(ValueError):     # head width 8, not a multiple of 32
+        pvt_attn.sra_attention(x, w_ln, b_ln, wq, bq, kv, wq, bq, 4)
+    with pytest.raises(ValueError):     # kv of the wrong width
+        pvt_attn.sra_attention(x, w_ln, b_ln, wq, bq, kv[..., :32], wq, bq, 1)
+    with pytest.raises(TypeError):
+        pvt_attn.sra_attention(x, w_ln, b_ln, wq, bq, kv.float(), wq, bq, 1)
+    with pytest.raises(RuntimeError):   # more K/V tokens than shared memory
+        pvt_attn.sra_attention(x, w_ln, b_ln, wq, bq,
+                               _rand(g, (1, 4096, 64), torch.bfloat16),
+                               wq, bq, 1)
+    # the refused launch leaves no error behind for the next one
+    pvt_attn.sra_attention(x, w_ln, b_ln, wq, bq, kv, wq, bq, 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["dw_bias_dropped", "pad_before_bias",
+                                   "q_bias_dropped"])
+def test_pvt_checks_reject_planted_faults(cuda, fault):
+    """The kernels held to a plain version with one fault planted fail the
+    check above: it sees faults in the kernel's part that a tolerance
+    relative to the residual would pass.  bf16 at stage-2 shapes."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    if fault == "q_bias_dropped":
+        f32 = torch.float32
+        args = (_rand(g, (2, 44, 44, 128), torch.bfloat16),
+                _rand(g, (128,), f32, 0.1, 1.0), _rand(g, (128,), f32, 0.1),
+                _rand(g, (128, 128), torch.bfloat16, 128 ** -0.5),
+                _rand(g, (128,), torch.bfloat16, 0.1),
+                _rand(g, (2, 121, 256), torch.bfloat16),
+                _rand(g, (128, 128), torch.bfloat16, 128 ** -0.5),
+                _rand(g, (128,), torch.bfloat16, 0.1), 2, 1e-6)
+        got = pvt_attn.sra_attention(*args)
+        _assert_held(got, pvt_attn.sra_attention_plain(*args),
+                     PVT_TOL[torch.bfloat16], args[0])
+        bad = pvt_attn.sra_attention_plain(*args[:4],
+                                           torch.zeros_like(args[4]),
+                                           *args[5:])
+        assert excess(got, bad, args[0], PVT_TOL[torch.bfloat16]) > 1
+        return
+    args = _mlp_args(g, 2, 44, 44, 128, 1024, torch.bfloat16)
+    if fault == "pad_before_bias":
+        # with a zero LN bias, a ring of zero tokens around x gives fc1
+        # outputs equal to b1 there: zero padding applied before the bias
+        args = args[:2] + (torch.zeros_like(args[2]),) + args[3:]
+        ring = torch.nn.functional.pad(args[0], (0, 0, 1, 1, 1, 1))
+        bad = pvt_mlp.mlp_block_plain(ring, *args[1:])[:, 1:-1, 1:-1]
+    else:
+        bad = pvt_mlp.mlp_block_plain(*args[:6], torch.zeros_like(args[6]),
+                                      *args[7:])
+    got = pvt_mlp.mlp_block(*args)
+    base = _mlp_base(args, {})
+    _assert_held(got, pvt_mlp.mlp_block_plain(*args),
+                 PVT_TOL[torch.bfloat16], base)
+    assert excess(got, bad, base, PVT_TOL[torch.bfloat16]) > 1
