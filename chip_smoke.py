@@ -8,17 +8,19 @@
 2. Holds each kernel against its plain PyTorch version at the shapes the
    serving paths give it, and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (CUDA events, median);
-   for the PVT kernels, which no single call computes, it times the eager
-   chain of PyTorch calls instead (``library_chain_ms``).
-3. Serves each model of the port, PraNet-V2 on Res2Net-50 and on PVTv2-b2
-   (full width and depth, random weights from a seed), in bf16 at 352x352,
-   batch 16, through ``serve.BinaryPredictor.stream`` over seeded synthetic
-   images, with the kernels' launch counters set to 0 just before and read
-   just after; times the forward alone (CUDA events), its device time by
-   kernel (torch.profiler) and the host stages of one batch; then checks
-   the bf16 logits against a float32 forward of the same weights, and the
-   GPU's float32 forward against the CPU's (plain versions) on a small
-   input.
+   for the PVT and Res2Net kernels, which no single call computes, it times
+   the eager chain of PyTorch calls instead (``library_chain_ms``).
+3. Serves three paths of the port (full width and depth, random weights
+   from a seed), in bf16 at 352x352, batch 16: PraNet-V2 on Res2Net-50, the
+   same with its fused Res2Net blocks (``fused=True, tailfuse=True``), and
+   PraNet-V2 on PVTv2-b2; each through ``serve.BinaryPredictor.stream``
+   over seeded synthetic images, with the kernels' launch counters set to 0
+   just before and read just after; times the forward alone (CUDA events),
+   its device time by kernel (torch.profiler) and the host stages of one
+   batch; then checks the bf16 logits against a float32 forward of the
+   same weights through the module chain (no kernel of the fused path),
+   and the GPU's float32 forward against the CPU's (plain versions) on a
+   small input.
 4. Prints one JSON line of kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -51,6 +53,14 @@ GATE_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # max.
 PVT_TOL = {"float32": 1e-4, "bfloat16": 2 * 2 ** -7}
 STATS_TOL = 1e-4
+# Res2Net kernels vs their plain versions (testing.excess, base x or the
+# shortcut, which dominate |out|): float32 differs by summation order only;
+# bfloat16 rounds at the same points (u, u_i + sp_{i-1}, each sp_i, out),
+# and an f32 ulp of difference can move one of those roundings by a bf16
+# step, which the next products carry, so two steps.
+RES2_TOL = {"float32": 1e-4, "bfloat16": 2 * 2 ** -7}
+# Res2Net-50-v1b at 352x352 by layer: (planes, map side, normal blocks)
+RES2_LAYERS = ((64, 88, 2), (128, 44, 3), (256, 22, 5), (512, 11, 2))
 MODEL_TOL = 0.1             # bf16 vs f32 logits, relative to max |f32|
 F32_TOL = 1e-3              # GPU f32 vs CPU f32, relative to max |CPU|;
                             # cuDNN may pick Winograd/FFT algorithms
@@ -357,6 +367,130 @@ def check_sra_attention(torch, dev) -> dict:
                     "pranet2_tpu/ops/pvt_attn.py:43", rows)
 
 
+def _res2_cases(torch):
+    return [(li, dt) for dt in (torch.bfloat16, torch.float32)
+            for li in range(len(RES2_LAYERS))]
+
+
+def check_res2_tail(torch, dev) -> dict:
+    """``fused_tail`` at the four stage blocks' tails of Res2Net-50-v1b
+    (cc of 4 width channels to 4 planes), bf16 and float32, against
+    ``res2_tail_plain``.  The main-path times are one forward's worth (one
+    stage block a layer)."""
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.ops import res2_tail
+    from pranet2_tpu_torch.testing import random_bottle2neck
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for li, dt in _res2_cases(torch):
+        planes, side, _ = RES2_LAYERS[li]
+        block = random_bottle2neck(planes * 2, planes, 10 + li, dev, dt,
+                                   stride=2, has_downsample=True,
+                                   stype="stage")
+        cout, cin = block.conv3.weight.shape[:2]
+        w3 = block.conv3.weight.detach().view(cout, cin)
+        bn = block.bn3
+        s3, t3 = res2_tail.fold_bn(bn.weight.detach(), bn.bias.detach(),
+                                   bn.running_mean, bn.running_var)
+        cc = torch.relu(torch.randn((BATCH, cin, side, side), generator=g,
+                                    device=dev)).to(dt)
+        short = torch.randn((BATCH, cout, side, side), generator=g,
+                            device=dev).to(dt)
+        args = (cc, short, w3, s3, t3)
+        got = res2_tail.fused_tail(*args)
+        want = res2_tail.res2_tail_plain(*args)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        err, over = _held(got, want, RES2_TOL[name],
+                          f"fused_tail at {tuple(cc.shape)} -> {cout} {name}",
+                          base=short)
+        m = BATCH * side * side
+        # per output: BN scale and shift, the residual, ReLU
+        b, by = bound_ms(nbytes(*args) + nbytes(got), 4 * m * cout,
+                         2 * m * cin * cout,
+                         BF16_MMA_PER_S if dt == torch.bfloat16
+                         else F32_OPS_PER_S)
+        w4 = w3.view(cout, cin, 1, 1)
+
+        def chain():
+            y = F.conv2d(cc, w4) * s3[:, None, None] + t3[:, None, None]
+            return torch.relu(y + short).to(dt)
+
+        rows.append({"shape": list(cc.shape), "cout": cout, "dtype": name,
+                     "main_path": dt == torch.bfloat16,
+                     "calls_per_forward": 1, "max_abs_err": err,
+                     "excess": over,
+                     "ms": time_ms(lambda: res2_tail.fused_tail(*args)),
+                     "plain_ms": time_ms(
+                         lambda: res2_tail.res2_tail_plain(*args), reps=3,
+                         rounds=3),
+                     "bound_ms": b, "bound_by": by,
+                     "library_chain_ms": time_ms(chain)})
+    return _summary("fused_tail", "pranet2_tpu_torch/csrc/res2_tail.cu",
+                    "pranet2_tpu/ops/res2_tail.py:37", rows)
+
+
+def check_bottle2neck(torch, dev) -> dict:
+    """``fused_bottle2neck`` at the normal blocks of Res2Net-50-v1b, bf16
+    and float32, against ``bottle2neck_plain``; the library chain is the
+    port's unfused Bottle2neck module in eval.  The main-path times are one
+    forward's worth (2 + 3 + 5 + 2 calls)."""
+    from pranet2_tpu_torch.ops import res2_block
+    from pranet2_tpu_torch.testing import random_bottle2neck
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for li, dt in _res2_cases(torch):
+        planes, side, calls = RES2_LAYERS[li]
+        c = planes * 4
+        block = random_bottle2neck(c, planes, 20 + li, dev, dt)
+        width = block.width
+        args = tuple(t.detach() for t in block.fused_args())
+        x = torch.randn((BATCH, c, side, side), generator=g,
+                        device=dev).to(dt)
+        got = res2_block.fused_bottle2neck(x, *args)
+        want = res2_block.bottle2neck_plain(x, *args)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        err, over = _held(got, want, RES2_TOL[name],
+                          f"fused_bottle2neck at {tuple(x.shape)} width "
+                          f"{width} {name}", base=x)
+        m = BATCH * side * side
+        # per pixel, outside the products: BN+ReLU of u (3 x 4w), the two
+        # hierarchical adds (2w), BN+ReLU of the sp_i (3 x 3w), the tail's
+        # BN, residual and ReLU (4c)
+        b, by = bound_ms(nbytes(x, *args) + nbytes(got),
+                         m * (12 * width + 2 * width + 9 * width + 4 * c),
+                         2 * m * (c * 4 * width + 27 * width * width
+                                  + 4 * width * c),
+                         BF16_MMA_PER_S if dt == torch.bfloat16
+                         else F32_OPS_PER_S)
+        with torch.inference_mode():
+            lib_ms = time_ms(lambda: block(x))
+        rows.append({"shape": list(x.shape), "width": width, "dtype": name,
+                     "main_path": dt == torch.bfloat16,
+                     "calls_per_forward": calls, "max_abs_err": err,
+                     "excess": over,
+                     # u and cat written (7 width channels), u, the
+                     # sp_{i-1} and cat read (9 width channels)
+                     "spill_bytes": 16 * width * m * x.element_size(),
+                     "ms": time_ms(
+                         lambda: res2_block.fused_bottle2neck(x, *args)),
+                     "plain_ms": time_ms(
+                         lambda: res2_block.bottle2neck_plain(x, *args),
+                         reps=3, rounds=3),
+                     "bound_ms": b, "bound_by": by,
+                     "library_chain_ms": lib_ms})
+    out = _summary("fused_bottle2neck",
+                   "pranet2_tpu_torch/csrc/res2_block.cu",
+                   "pranet2_tpu/ops/res2_block.py:125", rows)
+    out["spill_bytes"] = sum(r["spill_bytes"] * r["calls_per_forward"]
+                             for r in rows if r["main_path"])
+    return out
+
+
 def synthetic_images(np, n: int) -> list:
     rng = np.random.default_rng(0)
     return [rng.integers(0, 256, (int(rng.integers(288, 577)),
@@ -364,19 +498,34 @@ def synthetic_images(np, n: int) -> list:
                          dtype=np.uint8) for _ in range(n)]
 
 
-# launches per forward of each served model, by kernel
-PATHS = {"pranet_v2": {"max_pool3x3s2": 1, "dsra_gate": 3, "mlp_block": 0,
-                       "sra_attention": 0},
-         "pvt_pranet_v2": {"max_pool3x3s2": 0, "dsra_gate": 3,
-                           "mlp_block": 16, "sra_attention": 16}}
+# served paths: label -> (model, get_model keyword arguments, launches per
+# forward by kernel)
+_NO_PVT = {"mlp_block": 0, "sra_attention": 0}
+_NO_RES2 = {"fused_bottle2neck": 0, "fused_tail": 0}
+PATHS = {
+    "pranet_v2": ("pranet_v2", {}, {"max_pool3x3s2": 1, "dsra_gate": 3,
+                                    **_NO_RES2, **_NO_PVT}),
+    "pranet_v2_fused": ("pranet_v2", {"fused": True, "tailfuse": True},
+                        {"max_pool3x3s2": 1, "dsra_gate": 3,
+                         "fused_bottle2neck": 12, "fused_tail": 4,
+                         **_NO_PVT}),
+    "pvt_pranet_v2": ("pvt_pranet_v2", {}, {"max_pool3x3s2": 0,
+                                            "dsra_gate": 3, **_NO_RES2,
+                                            "mlp_block": 16,
+                                            "sra_attention": 16}),
+}
 MLP_MODES = {"pranet_v2": {"plain": 0, "stats": 0, "final_ln": 0},
+             "pranet_v2_fused": {"plain": 0, "stats": 0, "final_ln": 0},
              "pvt_pranet_v2": {"plain": 0, "stats": 12, "final_ln": 4}}
 
 
 def _wrappers():
-    from pranet2_tpu_torch.ops import dsra, pvt_attn, pvt_mlp, stem
+    from pranet2_tpu_torch.ops import (dsra, pvt_attn, pvt_mlp, res2_block,
+                                       res2_tail, stem)
 
     return {"max_pool3x3s2": stem.max_pool3x3s2, "dsra_gate": dsra.dsra_gate,
+            "fused_bottle2neck": res2_block.fused_bottle2neck,
+            "fused_tail": res2_tail.fused_tail,
             "mlp_block": pvt_mlp.mlp_block,
             "sra_attention": pvt_attn.sra_attention}
 
@@ -388,14 +537,16 @@ def _reset_counts():
             f.mode_launches = dict.fromkeys(f.mode_launches, 0)
 
 
-def run_path(torch, np, name, state_dict) -> tuple[dict, object]:
-    """Serve the synthetic images with model ``name``; count launches over
+def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
+    """Serve the synthetic images on path ``label``; count launches over
     exactly that run."""
     from pranet2_tpu_torch.serve import BinaryPredictor
 
+    name, kwargs, launches = PATHS[label]
     images = synthetic_images(np, N_IMAGES)
     pred = BinaryPredictor(name, state_dict, batch_size=BATCH,
-                           testsize=SIZE, dtype=torch.bfloat16)
+                           testsize=SIZE, dtype=torch.bfloat16,
+                           model_kwargs=kwargs)
     try:
         pred.warmup()
         _reset_counts()
@@ -407,10 +558,10 @@ def run_path(torch, np, name, state_dict) -> tuple[dict, object]:
         counts = {k: f.launches for k, f in wrappers.items()}
         modes = dict(wrappers["mlp_block"].mode_launches)
         forwards = -(-N_IMAGES // BATCH)
-        want = {k: n * forwards for k, n in PATHS[name].items()}
-        want_modes = {k: n * forwards for k, n in MLP_MODES[name].items()}
+        want = {k: n * forwards for k, n in launches.items()}
+        want_modes = {k: n * forwards for k, n in MLP_MODES[label].items()}
         if counts != want or modes != want_modes:
-            raise AssertionError(f"{name}: launches {counts}, MLP modes "
+            raise AssertionError(f"{label}: launches {counts}, MLP modes "
                                  f"{modes} over {forwards} forwards; "
                                  f"expected {want}, {want_modes}")
         if len(masks) != len(images):
@@ -424,7 +575,7 @@ def run_path(torch, np, name, state_dict) -> tuple[dict, object]:
             fwd_ms = time_ms(lambda: pred.model(batch), reps=10, rounds=5)
             logits = sum(pred.model(batch)[:4]).float()
             device = device_time(torch, lambda: pred.model(batch))
-        return {"model": name, "launches": counts, "mlp_modes": modes,
+        return {"model": label, "launches": counts, "mlp_modes": modes,
                 "forwards": forwards,
                 "stream_img_per_s": N_IMAGES / seconds,
                 "forward_ms": fwd_ms,
@@ -477,7 +628,8 @@ def device_time(torch, fn, forwards: int = 5) -> dict:
         return {"busy_ms": None, "ported_kernels_ms": None, "top": []}
     ported = sum(ms for k, ms in rows if any(
         n in k for n in ("maxpool3x3s2", "dsra_gate", "fc1_kernel",
-                         "dw_gelu_kernel", "fc2_kernel", "sra_kernel")))
+                         "dw_gelu_kernel", "fc2_kernel", "sra_kernel",
+                         "res2_conv_kernel", "res2_split_epilogue")))
     return {"busy_ms": sum(ms for _, ms in rows), "ported_kernels_ms": ported,
             "top": [{"name": k[:90], "ms": ms} for k, ms in rows[:10]]}
 
@@ -489,9 +641,10 @@ def rel_err(a, b) -> float:
 
 def check_reference(torch, name, state_dict, batch, logits_bf16) -> dict:
     """bf16 serving logits vs float32 on the card (TF32 off); float32 on the
-    card vs float32 on the CPU (plain versions), small input.  For PVT the
-    float32 path is the module chain, so the first check holds the bf16
-    kernels end to end against code that does not use them."""
+    card vs float32 on the CPU (plain versions), small input.  The float32
+    model is built without keyword arguments, and for PVT the float32 path
+    is the module chain, so the first check holds the fused Res2Net and the
+    PVT bf16 kernels end to end against code that does not use them."""
     from pranet2_tpu_torch import get_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -546,22 +699,28 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     print(f"built kernels {_build.sources()} in {_build.build():.1f} s")
     dev = torch.device("cuda")
+    # the plain versions' float32 convolutions and products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     kernels = [check_maxpool(torch, dev), check_gate(torch, dev),
+               check_res2_tail(torch, dev), check_bottle2neck(torch, dev),
                check_pvt_mlp(torch, dev), check_sra_attention(torch, dev)]
     print("kernels checked against their plain versions")
 
     from pranet2_tpu_torch import get_model
 
-    models = []
-    for name in PATHS:
-        state_dict = get_model(name, device="cpu",
-                               generator=torch.Generator().manual_seed(0)
-                               ).state_dict()
-        model, (batch, logits_bf16) = run_path(torch, np, name, state_dict)
+    models, weights = [], {}
+    for label, (name, _, _) in PATHS.items():
+        if name not in weights:
+            weights[name] = get_model(
+                name, device="cpu",
+                generator=torch.Generator().manual_seed(0)).state_dict()
+        state_dict = weights[name]
+        model, (batch, logits_bf16) = run_path(torch, np, label, state_dict)
         model.update(check_reference(torch, name, state_dict, batch,
                                      logits_bf16))
-        print(f"{name} bf16 {SIZE}x{SIZE} batch {BATCH}: forward "
+        print(f"{label} bf16 {SIZE}x{SIZE} batch {BATCH}: forward "
               f"{model['forward_img_per_s']:.1f} img/s, stream "
               f"{model['stream_img_per_s']:.1f} img/s on {card}")
         print("model: " + json.dumps(model))

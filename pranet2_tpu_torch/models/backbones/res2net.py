@@ -2,9 +2,19 @@
 
 Port of the plain module path of ``pranet2_tpu/models/backbones/res2net.py``,
 with the reference's attribute names (``conv1.0``, ``layer1.0.convs.0``,
-``layer2.0.downsample.1``, ...).  The JAX package's ``fused``, ``s2d_stem``,
-``l1_packed``, ``gstage``, ``splitmm`` and ``tailfuse`` branches are TPU
-restructures or opt-in kernels of the same arithmetic and are left out.
+``layer2.0.downsample.1``, ...), and of its two opt-in kernel branches
+(eval only, BatchNorms folded from their running statistics at each
+forward):
+
+* ``fused``: a whole stride-1 'normal' Bottle2neck in one call of
+  ``ops.res2_block.fused_bottle2neck`` (the JAX ``res2block`` component, or
+  ``Res2Net(fused=True)``), in float32 or bfloat16;
+* ``tailfuse``: the conv3 + BN3 + residual + ReLU tail of every other block
+  in one call of ``ops.res2_tail.fused_tail`` (the JAX ``tailfuse``
+  component), in bfloat16 only, as JAX enables it.
+
+The JAX package's ``s2d_stem``, ``l1_packed``, ``gstage`` and ``splitmm``
+branches are TPU restructures of the same arithmetic and are left out.
 
 * Bottle2neck: 1x1 expand to ``width*scale`` channels, split into ``scale``
   groups; groups 0..scale-2 go through 3x3 conv+BN+ReLU, fed by a running
@@ -24,11 +34,17 @@ import math
 import torch
 from torch import nn
 
-from pranet2_tpu_torch.ops import avg_pool, max_pool3x3s2
+from pranet2_tpu_torch.ops import (avg_pool, max_pool3x3s2, res2_block,
+                                   res2_tail)
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+
+def _fold(bn: nn.BatchNorm2d):
+    return res2_tail.fold_bn(bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var, bn.eps)
 
 
 class _ShortcutPool(nn.Module):
@@ -50,11 +66,13 @@ class Bottle2neck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False, stype: str = "normal",
-                 base_width: int = 26, scale: int = 4):
+                 base_width: int = 26, scale: int = 4, fused: bool = False,
+                 tailfuse: bool = False):
         super().__init__()
         width = int(math.floor(planes * (base_width / 64.0)))
         self.width, self.scale, self.stride, self.stype = (
             width, scale, stride, stype)
+        self.fused, self.tailfuse = fused, tailfuse
         self.conv1 = nn.Conv2d(inplanes, width * scale, 1, bias=False)
         self.bn1 = _bn(width * scale)
         nums = 1 if scale == 1 else scale - 1
@@ -71,7 +89,21 @@ class Bottle2neck(nn.Module):
             _bn(cout),
         ) if has_downsample else None)
 
+    def fused_args(self):
+        """``fused_bottle2neck``'s weights (views of the conv weights, the
+        three 3x3 kernels stacked) and BatchNorms folded now."""
+        cout, c4 = self.conv3.weight.shape[:2]
+        s1, t1 = _fold(self.bn1)
+        sd, td = (torch.stack(v) for v in zip(*map(_fold, self.bns)))
+        return (self.conv1.weight.view(c4, -1), s1, t1,
+                torch.stack([c.weight for c in self.convs]), sd, td,
+                self.conv3.weight.view(cout, c4), *_fold(self.bn3))
+
     def forward(self, x):
+        if (self.fused and not self.training and self.stype == "normal"
+                and self.stride == 1 and self.downsample is None
+                and self.scale == res2_block.SCALE):
+            return res2_block.fused_bottle2neck(x, *self.fused_args())
         out = torch.relu(self.bn1(self.conv1(x)))
         spx = torch.split(out, self.width, 1)
         parts = []
@@ -85,20 +117,27 @@ class Bottle2neck(nn.Module):
                 parts.append(spx[-1])
             else:
                 parts.append(avg_pool(spx[-1], 3, self.stride, 1))
-        out = self.bn3(self.conv3(torch.cat(parts, 1)))
+        out = torch.cat(parts, 1)
         short = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + short)
+        w3 = self.conv3.weight
+        if (self.tailfuse and not self.training
+                and w3.dtype == torch.bfloat16):
+            return res2_tail.fused_tail(out, short, w3.view(w3.shape[0], -1),
+                                        *_fold(self.bn3))
+        return torch.relu(self.bn3(self.conv3(out)) + short)
 
 
 class Res2Net(nn.Module):
     """Res2Net-v1b feature pyramid.
 
     ``forward`` returns (x1, x2, x3, x4) at strides 4/8/16/32 with 256/512/
-    1024/2048 channels, the stages PraNet reads.
+    1024/2048 channels, the stages PraNet reads.  ``fused`` and
+    ``tailfuse`` choose the kernel branches of every Bottle2neck (see the
+    module docstring); they change no parameter or buffer.
     """
 
     def __init__(self, layers=(3, 4, 6, 3), base_width: int = 26,
-                 scale: int = 4):
+                 scale: int = 4, fused: bool = False, tailfuse: bool = False):
         super().__init__()
         self.conv1 = nn.Sequential(
             nn.Conv2d(3, 32, 3, 2, 1, bias=False), _bn(32),
@@ -117,11 +156,12 @@ class Res2Net(nn.Module):
                     seq.append(Bottle2neck(
                         inplanes, planes, stride,
                         stride != 1 or inplanes != planes * 4, "stage",
-                        base_width, scale))
+                        base_width, scale, fused, tailfuse))
                     inplanes = planes * 4
                 else:
                     seq.append(Bottle2neck(inplanes, planes, 1, False,
-                                           "normal", base_width, scale))
+                                           "normal", base_width, scale,
+                                           fused, tailfuse))
             setattr(self, f"layer{li}", nn.Sequential(*seq))
 
     def forward(self, x):

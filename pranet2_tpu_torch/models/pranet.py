@@ -27,15 +27,23 @@ from pranet2_tpu_torch.ops import dsra_gate, resize_bilinear
 # level -> (trunk width, trunk convs, trunk kernel, head kernel,
 #           head index in the torch names)
 _DSRA = {4: (256, 3, 5, 1, 5), 3: (64, 2, 3, 3, 4), 2: (64, 2, 3, 3, 4)}
-# backbone -> (constructor, channels of stages 2, 3 and 4)
-_BACKBONES = {"res2net50": (lambda: Res2Net(layers=(3, 4, 6, 3)),
+# backbone -> (constructor taking the backbone's keyword arguments,
+#              channels of stages 2, 3 and 4)
+_BACKBONES = {"res2net50": (lambda **kw: Res2Net(**{"layers": (3, 4, 6, 3),
+                                                    **kw}),
                             (512, 1024, 2048)),
-              "pvt_v2_b2": (lambda: pvt_v2("b2"), (128, 320, 512))}
+              "pvt_v2_b2": (lambda **kw: pvt_v2("b2", **kw),
+                            (128, 320, 512))}
 
 
 class PraNetV2(nn.Module):
+    """``backbone_kw`` go to the backbone's constructor, e.g. ``fused=True,
+    tailfuse=True`` for Res2Net's kernel branches; one it does not take is
+    an error."""
+
     def __init__(self, backbone: str = "res2net50", channel: int = 32,
-                 num_class: int = 1, use_softmax: bool = True):
+                 num_class: int = 1, use_softmax: bool = True,
+                 **backbone_kw):
         super().__init__()
         if backbone not in _BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}; available: "
@@ -47,7 +55,7 @@ class PraNetV2(nn.Module):
         self.conv = nn.Sequential(nn.Conv2d(1, 3, 1),
                                   nn.BatchNorm2d(3, eps=1e-5, momentum=0.1),
                                   nn.ReLU())
-        self.backbone = make()
+        self.backbone = make(**backbone_kw)
         for lvl, cin in widths.items():
             setattr(self, f"rfb{lvl}_1", RFB(cin, channel))
         self.agg1 = PartialDecoder(channel, num_class)

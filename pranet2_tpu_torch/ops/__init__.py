@@ -1,4 +1,5 @@
-"""Tensor ops of the port (NCHW).  Kernels live in ``stem`` and ``dsra``."""
+"""Tensor ops of the port (NCHW).  Kernels live in ``stem``, ``dsra``,
+``res2_tail``, ``res2_block``, ``pvt_mlp`` and ``pvt_attn``."""
 
 from pranet2_tpu_torch.ops.dsra import dsra_gate, dsra_gate_plain
 from pranet2_tpu_torch.ops.pooling import avg_pool, max_pool

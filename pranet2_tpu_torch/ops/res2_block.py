@@ -1,0 +1,115 @@
+"""The whole stride-1 'normal' Bottle2neck of Res2Net-v1b, eval mode.
+
+Port of ``pranet2_tpu/ops/res2_block.py::_kernel_full`` / ``_kernel_halo``
+(launcher ``fused_bottle2neck``, body ``_body``).  ``fused_bottle2neck``
+launches the hand-written kernels (``csrc/res2_block.cu``) on a CUDA tensor
+and runs the plain version on a CPU tensor.  Both follow the TPU kernel's
+rounding points:
+
+* ``u = relu(conv1x1(x) * s1 + t1)``, rounded to x's type;
+* the input of 3x3 conv i > 0 is ``u_i + sp_{i-1}`` rounded to x's type;
+* each 3x3 conv (zero padding 1) is accumulated in float32 from operands in
+  x's type, then BatchNorm and ReLU in float32, rounded to x's type;
+* the projection of ``cat(sp_0, sp_1, sp_2, u_3)`` is summed in float32,
+  then ``* s3 + t3 + x`` in float32, ReLU and one cast (the tail).
+
+Maps are NCHW: x (N, C, H, W).  Weights in torch layout: ``w1`` (4 width,
+C), ``wd`` (3, width, width, 3, 3) the three OIHW 3x3 kernels, ``w3`` (C,
+4 width); the folded BatchNorms float32: ``s1``/``t1`` (4 width),
+``sd``/``td`` (3, width), ``s3``/``t3`` (C).  Forward only: training runs
+the module chain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from pranet2_tpu_torch.ops import _build
+from pranet2_tpu_torch.ops.res2_tail import (bn_relu, check_args, conv1x1,
+                                             res2_tail_plain)
+
+SCALE = 4  # Res2Net-v1b's splits; the block kernel takes no other
+
+
+def bottle2neck_plain(x, w1, s1, t1, wd, sd, td, w3, s3, t3):
+    """Plain PyTorch version, step by step with the kernel's roundings."""
+    dt = x.dtype
+    width = wd.shape[1]
+    u = bn_relu(conv1x1(x, w1), s1, t1).to(dt)
+    parts, sp = [], None
+    for i in range(SCALE - 1):
+        vin = u[:, i * width:(i + 1) * width]
+        if sp is not None:
+            vin = vin + sp
+        acc = F.conv2d(vin.float(), wd[i].float(), padding=1)
+        sp = bn_relu(acc, sd[i], td[i]).to(dt)
+        parts.append(sp)
+    parts.append(u[:, (SCALE - 1) * width:])
+    return res2_tail_plain(torch.cat(parts, 1), x, w3, s3, t3)
+
+
+def _kernel():
+    lib = _build.library("res2_block")
+    f, ws = lib.res2_block, lib.res2_block_workspace
+    f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    ws.argtypes = [ctypes.c_int] * 7
+    ws.restype = ctypes.c_longlong
+    return f, ws
+
+
+def fused_bottle2neck(x, w1, s1, t1, wd, sd, td, w3, s3, t3):
+    """A whole 'normal' Bottle2neck (stride 1, no downsample, 4 splits).
+
+    CPU tensors: the plain version.  CUDA tensors: the kernels, which take
+    contiguous NCHW maps and weights in one type (float32 or bfloat16), the
+    folded BatchNorms in float32, and raise on anything else.  A call
+    launches a chain of five products (each with a second, split-K
+    epilogue launch where it splits) and counts once in
+    ``fused_bottle2neck.launches``.
+    """
+    if x.device.type == "cpu":
+        return bottle2neck_plain(x, w1, s1, t1, wd, sd, td, w3, s3, t3)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_bottle2neck: unsupported device {x.device}")
+    if x.dim() != 4 or wd.dim() != 5:
+        raise ValueError(f"fused_bottle2neck: x must be NCHW and wd (3, width,"
+                         f" width, 3, 3), got {tuple(x.shape)}, "
+                         f"{tuple(wd.shape)}")
+    n, c, h, w = x.shape
+    width = wd.shape[1]
+    check_args("fused_bottle2neck", x,
+               {"w1": (w1, (SCALE * width, c)),
+                "wd": (wd, (SCALE - 1, width, width, 3, 3)),
+                "w3": (w3, (c, SCALE * width))},
+               {"s1": (s1, (SCALE * width,)), "t1": (t1, (SCALE * width,)),
+                "sd": (sd, (SCALE - 1, width)), "td": (td, (SCALE - 1, width)),
+                "s3": (s3, (c,)), "t3": (t3, (c,))})
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    # scratch: u's groups 0-2, the concat buffer the projection reads, and
+    # the split-K partial sums
+    u = torch.empty((n, (SCALE - 1) * width, h, w), dtype=x.dtype,
+                    device=x.device)
+    cat = torch.empty((n, SCALE * width, h, w), dtype=x.dtype,
+                      device=x.device)
+    code = _build.DTYPE_CODES[x.dtype]
+    kernel, elems = _kernel()
+    ws = torch.empty(max(elems(code, n, c, width, c, h, w), 1),
+                     dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = kernel(code, *(t.data_ptr() for t in (x, w1, s1, t1, wd, sd, td,
+                                                    w3, s3, t3, u, cat, out,
+                                                    ws)),
+                     n, c, width, c, h, w, _build.stream_ptr(x))
+    _build.check(err, "fused_bottle2neck")
+    fused_bottle2neck.launches += 1
+    return out
+
+
+fused_bottle2neck.launches = 0

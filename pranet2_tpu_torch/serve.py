@@ -29,7 +29,7 @@ class BinaryPredictor:
     def __init__(self, model_name: str, state_dict, batch_size: int = 16,
                  testsize: int = 352, dtype: torch.dtype | None = None,
                  exact_postproc: bool = True, host_workers: int | None = None,
-                 device=None):
+                 device=None, model_kwargs: dict | None = None):
         """``state_dict``: the model's weights (a reference checkpoint, or
         ``utils.convert.state_dict_from_jax`` output loaded into a model).
 
@@ -44,10 +44,14 @@ class BinaryPredictor:
         capped at ``batch_size``; 0 or 1 decodes inline.
 
         ``device``: the GPU unless given (``"cpu"`` for tests).
+
+        ``model_kwargs``: more keyword arguments for ``get_model``, e.g.
+        ``{"fused": True, "tailfuse": True}`` for PraNet-V2 with the fused
+        Res2Net blocks.
         """
         self.device = resolve(device)
         self.model = get_model(model_name, device=self.device, dtype=dtype,
-                               num_class=1)
+                               num_class=1, **(model_kwargs or {}))
         self.model.load_state_dict(state_dict)
         self.model.eval()
         self.batch_size = batch_size

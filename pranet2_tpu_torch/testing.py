@@ -1,4 +1,5 @@
-"""Holding a kernel's output to its plain version's.
+"""Holding a kernel's output to its plain version's, and random inputs for
+the Res2Net kernels' checks.
 
 A PVT block returns ``x + f(x)`` (or a LayerNorm of it), and the residual x
 is often ten times larger than what the kernel computes.  A tolerance taken
@@ -35,3 +36,31 @@ def excess(got: torch.Tensor, want: torch.Tensor,
     scale = (w if base is None else w - base.float()).abs().max()
     allowed = tol * scale + (step(want) + step(got)) / 2
     return ((g - w).abs() / allowed).max().item()
+
+
+def random_bottle2neck(inplanes: int, planes: int, seed: int, device,
+                       dtype: torch.dtype, **kw):
+    """A Res2Net Bottle2neck in eval mode on ``device``: seeded LeCun-normal
+    convolutions in ``dtype`` and random float32 BatchNorms.  ``kw`` go to
+    ``Bottle2neck``.
+
+    Each BatchNorm's var is log-uniform in [1e-3, 1] and its weight
+    ``sqrt(var) * (1 + 0.1 N)``, so the folded scale stays near 1 while the
+    eps matters; bias and mean are ``0.1 N``.
+    """
+    from pranet2_tpu_torch.models.backbones.res2net import Bottle2neck
+    from pranet2_tpu_torch.nn import init_weights_, set_compute_dtype
+
+    g = torch.Generator().manual_seed(seed)
+    block = init_weights_(Bottle2neck(inplanes, planes, **kw), g)
+    with torch.no_grad():
+        for bn in block.modules():
+            if isinstance(bn, torch.nn.BatchNorm2d):
+                c = bn.num_features
+                var = 10.0 ** (-3.0 * torch.rand(c, generator=g))
+                bn.running_var.copy_(var)
+                bn.weight.copy_(var.sqrt()
+                                * (1.0 + 0.1 * torch.randn(c, generator=g)))
+                bn.bias.copy_(0.1 * torch.randn(c, generator=g))
+                bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+    return set_compute_dtype(block.to(device), dtype).eval()

@@ -12,9 +12,11 @@ JAX package, so it also runs on a machine that has only PyTorch:
 import pytest
 import torch
 
-from pranet2_tpu_torch import ops
-from pranet2_tpu_torch.ops import dsra, pvt_attn, pvt_mlp, stem
-from pranet2_tpu_torch.testing import excess
+from pranet2_tpu_torch import get_model, ops
+from pranet2_tpu_torch.ops import (dsra, pvt_attn, pvt_mlp, res2_block,
+                                   res2_tail, stem)
+from pranet2_tpu_torch.testing import excess, random_bottle2neck
+import torch_res2_faults
 
 
 @pytest.fixture
@@ -250,3 +252,149 @@ def test_pvt_checks_reject_planted_faults(cuda, fault):
     _assert_held(got, pvt_mlp.mlp_block_plain(*args),
                  PVT_TOL[torch.bfloat16], base)
     assert excess(got, bad, base, PVT_TOL[torch.bfloat16]) > 1
+
+
+# Res2Net kernels vs their plain versions (testing.excess, base x or the
+# shortcut, which dominate |out|): float32 differs by summation order only;
+# bfloat16 rounds at the same points (u, u_i + sp_{i-1}, each sp_i, out),
+# and an f32 ulp of difference can move one of those roundings by a bf16
+# step, which the next products carry, so two steps.  The plain versions'
+# convolutions run in float32, so TF32 is off.
+RES2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * 2 ** -7}
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _fold(bn, fault=None):
+    return torch_res2_faults.fold(fault, bn.weight, bn.bias, bn.running_mean,
+                                  bn.running_var)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planes,side", [
+    (64, 88),      # layer 1 of Res2Net-50 at 352x352: 104 -> 256 channels
+    (512, 11),     # layer 4: 832 -> 2048 channels, an odd width
+    (128, 7),      # 208 -> 512 on a 49-pixel map
+])
+def test_res2_tail_kernel_matches_plain(no_tf32, planes, side, dtype):
+    block = random_bottle2neck(planes * 2, planes, planes + side, no_tf32,
+                               dtype, stride=2, has_downsample=True,
+                               stype="stage")
+    cout, cin = block.conv3.weight.shape[:2]
+    g = torch.Generator(device=no_tf32).manual_seed(side)
+    cc = torch.relu(_rand(g, (2, cin, side, side), dtype))
+    short = _rand(g, (2, cout, side, side), dtype)
+    args = (cc, short, block.conv3.weight.view(cout, cin), *_fold(block.bn3))
+    before = res2_tail.fused_tail.launches
+    got = res2_tail.fused_tail(*args)
+    torch.cuda.synchronize()
+    assert res2_tail.fused_tail.launches == before + 1
+    want = res2_tail.res2_tail_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_held(got, want, RES2_TOL[dtype], short)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planes,side", [
+    (64, 88),      # layer 1 of Res2Net-50 at 352x352: width 26
+    (512, 11),     # layer 4: width 208, an odd map width
+    (128, 5),      # width 52 on a 25-pixel map
+])
+def test_bottle2neck_kernel_matches_plain(no_tf32, planes, side, dtype):
+    block = random_bottle2neck(planes * 4, planes, planes + side, no_tf32,
+                               dtype)
+    g = torch.Generator(device=no_tf32).manual_seed(side)
+    x = _rand(g, (2, planes * 4, side, side), dtype)
+    args = block.fused_args()
+    before = res2_block.fused_bottle2neck.launches
+    got = res2_block.fused_bottle2neck(x, *args)
+    torch.cuda.synchronize()
+    assert res2_block.fused_bottle2neck.launches == before + 1
+    want = res2_block.bottle2neck_plain(x, *args)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_held(got, want, RES2_TOL[dtype], x)
+    # the module routes to the kernel in eval, and only there
+    block.fused = True
+    with torch.no_grad():
+        torch.testing.assert_close(block(x), got, rtol=0, atol=0)
+        block.train()
+        block(x)
+    assert res2_block.fused_bottle2neck.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", torch_res2_faults.FAULTS)
+def test_res2_checks_reject_planted_faults(no_tf32, fault):
+    """The block kernel held to a plain version with one fault planted
+    fails the check above.  bf16 at layer-2 shapes."""
+    block = random_bottle2neck(512, 128, 5, no_tf32, torch.bfloat16)
+    g = torch.Generator(device=no_tf32).manual_seed(6)
+    x = _rand(g, (2, 512, 44, 44), torch.bfloat16)
+    args = block.fused_args()
+    got = res2_block.fused_bottle2neck(x, *args)
+    _assert_held(got, res2_block.bottle2neck_plain(x, *args),
+                 RES2_TOL[torch.bfloat16], x)
+    if fault == "wrong_eps":
+        s1, t1 = _fold(block.bn1, fault)
+        sd, td = (torch.stack(v) for v in
+                  zip(*(_fold(bn, fault) for bn in block.bns)))
+        args = (args[0], s1, t1, args[3], sd, td, args[6],
+                *_fold(block.bn3, fault))
+    bad = torch_res2_faults.bottle2neck(fault, x, *args)
+    assert excess(got, bad, x, RES2_TOL[torch.bfloat16]) > 1
+
+
+@pytest.mark.cuda
+def test_res2_wrappers_refuse_bad_inputs(cuda):
+    block = random_bottle2neck(256, 64, 0, cuda, torch.bfloat16)
+    x = torch.zeros((1, 256, 8, 8), device=cuda, dtype=torch.bfloat16)
+    args = block.fused_args()
+    with pytest.raises(TypeError):      # fp16 maps
+        res2_block.fused_bottle2neck(x.half(), *args)
+    with pytest.raises(TypeError):      # BatchNorm scale not float32
+        res2_block.fused_bottle2neck(x, args[0], args[1].bfloat16(),
+                                     *args[2:])
+    with pytest.raises(ValueError):     # x not contiguous NCHW
+        res2_block.fused_bottle2neck(
+            x.to(memory_format=torch.channels_last), *args)
+    with pytest.raises(ValueError):     # x of another width than w1 takes
+        res2_block.fused_bottle2neck(x[:, :128].contiguous(), *args)
+    with pytest.raises(ValueError):     # weights on the CPU
+        res2_block.fused_bottle2neck(x, args[0].cpu(), *args[1:])
+    cc = x[:, :104].contiguous()
+    w3, s3, t3 = args[6:]
+    with pytest.raises(ValueError):     # shortcut of the wrong width
+        res2_tail.fused_tail(cc, x[:, :128].contiguous(), w3, s3, t3)
+    with pytest.raises(TypeError):      # w3 in another type than cc
+        res2_tail.fused_tail(cc, x, w3.float(), s3, t3)
+
+
+@pytest.mark.cuda
+def test_fused_pranet_v2_launches_both_kernels(no_tf32):
+    """Depths (2, 2, 2, 2) at 64x64, bf16: four normal blocks through the
+    block kernel, four stage blocks through the tail kernel."""
+    kw = dict(layers=(2, 2, 2, 2), device=no_tf32, dtype=torch.bfloat16)
+    plain = get_model("pranet_v2", **kw).eval()
+    fused = get_model("pranet_v2", fused=True, tailfuse=True, **kw).eval()
+    fused.load_state_dict(plain.state_dict())
+    x = torch.randn((2, 3, 64, 64), device=no_tf32)
+    before = (res2_block.fused_bottle2neck.launches,
+              res2_tail.fused_tail.launches)
+    with torch.no_grad():
+        got, want = fused(x), plain(x)
+    assert (res2_block.fused_bottle2neck.launches,
+            res2_tail.fused_tail.launches) == (before[0] + 4, before[1] + 4)
+    for g, w in zip(got, want):
+        assert ((g.float() - w.float()).abs().max()
+                / w.float().abs().max()).item() < 0.06
