@@ -9,11 +9,15 @@
    serving paths give it, and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (CUDA events, median);
    for the PVT and Res2Net kernels, which no single call computes, it times
-   the eager chain of PyTorch calls instead (``library_chain_ms``).
-3. Serves three paths of the port (full width and depth, random weights
+   the eager chain of PyTorch calls instead (``library_chain_ms``).  The
+   depthwise 3x3, which no model calls, is checked at PVTv2-b2's hidden
+   shapes.
+3. Serves five paths of the port (full width and depth, random weights
    from a seed), in bf16 at 352x352, batch 16: PraNet-V2 on Res2Net-50, the
    same with its fused Res2Net blocks (``fused=True, tailfuse=True``), and
-   PraNet-V2 on PVTv2-b2; each through ``serve.BinaryPredictor.stream``
+   PraNet-V2 on PVTv2-b2 with its default kernels, with the whole-half
+   attention (``attn_impl="v2"``) and with the whole-block kernel
+   (``blockfuse=True``); each through ``serve.BinaryPredictor.stream``
    over seeded synthetic images, with the kernels' launch counters set to 0
    just before and read just after; times the forward alone (CUDA events),
    its device time by kernel (torch.profiler) and the host stages of one
@@ -68,6 +72,10 @@ F32_TOL = 1e-3              # GPU f32 vs CPU f32, relative to max |CPU|;
 # by stage
 PVT_STAGES = ((88, 64, 1, 8, 8, 3), (44, 128, 2, 8, 4, 4),
               (22, 320, 5, 4, 2, 6), (11, 512, 8, 4, 1, 3))
+# the depthwise 3x3 vs its plain version: float32 within 1e-5 of max |out|
+# (the same sums in the same order), bf16 one step (tol 0 in
+# testing.excess: each side's output rounding)
+DW_TOL = {"float32": 1e-5, "bfloat16": 0.0}
 
 
 def fail(msg: str) -> int:
@@ -367,6 +375,223 @@ def check_sra_attention(torch, dev) -> dict:
                     "pranet2_tpu/ops/pvt_attn.py:43", rows)
 
 
+def _sra_block_case(torch, g, dev, dt, si):
+    """x and ``sra_block``'s parameters at PVTv2-b2 stage ``si``, and the
+    (d, heads, sr, depth, Tkv) of that stage."""
+    side, d, nh, _, sr, depth = PVT_STAGES[si]
+    p = _pvt_params(torch, g, dev, dt, {
+        "w_ln": (d,), "b_ln": (d,), "wq": (d, d), "bq": (d,),
+        "srb": (d,), "wk_ln": (d,), "bk_ln": (d,), "wkv": (2 * d, d),
+        "bkv": (2 * d,), "wp": (d, d), "bp": (d,)})
+    kv_path = (None,) * 4
+    if sr > 1:
+        srw = (torch.randn((d, d, sr, sr), generator=g, device=dev)
+               * (sr * sr * d) ** -0.5).to(dt)
+        kv_path = (srw, p["srb"], p["wk_ln"], p["bk_ln"])
+    x = torch.randn((BATCH, side, side, d), generator=g, device=dev).to(dt)
+    args = (x, p["w_ln"], p["b_ln"], p["wq"], p["bq"], *kv_path, p["wkv"],
+            p["bkv"], p["wp"], p["bp"])
+    return args, (d, nh, sr, depth, (side // sr) ** 2)
+
+
+def _sra_block_work(m, d, nh, sr, tkv):
+    """(operations outside the products, product operations) of a whole
+    attention half over m tokens of BATCH images: per token LN 7D, q bias
+    and scale 2D, softmax 4 Tkv per head, the division D, proj bias and
+    residual 2D; per K/V token the sr bias and kv LN 8D (sr > 1), kv bias
+    2D; products q, proj, scores, PV, the patch product and kv."""
+    kv_tokens = BATCH * tkv
+    ops = m * (12 * d + 4 * nh * tkv) + kv_tokens * (
+        (10 if sr > 1 else 2) * d)
+    mma = (4 * m * d * d + 4 * m * tkv * d
+           + 2 * kv_tokens * d * (sr * sr * d if sr > 1 else 0)
+           + 4 * kv_tokens * d * d)
+    return ops, mma
+
+
+def _sra_chain(torch, args, nh, sr):
+    """The eager chain of PyTorch calls for a whole attention half: LN,
+    the sr convolution, its LN, the kv Linear, q, SDPA, proj, residual."""
+    import torch.nn.functional as F
+
+    x, lw, lb, wq, bq, srw, srb, kw, kb, wkv, bkv, wp, bp = args
+    dt, d = x.dtype, x.shape[-1]
+    hd = d // nh
+    heads = lambda t: t.reshape(BATCH, -1, nh, hd).transpose(1, 2)
+
+    def chain():
+        y = F.layer_norm(x, (d,), lw.to(dt), lb.to(dt), 1e-6)
+        t = y
+        if sr > 1:
+            t = F.conv2d(y.permute(0, 3, 1, 2), srw, srb, stride=sr)
+            t = F.layer_norm(t.permute(0, 2, 3, 1), (d,), kw.to(dt),
+                             kb.to(dt), 1e-5)
+        k, v = F.linear(t.reshape(BATCH, -1, d), wkv, bkv).split(d, -1)
+        q = heads(F.linear(y.reshape(BATCH, -1, d), wq, bq))
+        o = F.scaled_dot_product_attention(q, heads(k), heads(v))
+        return x + F.linear(o.transpose(1, 2).reshape(x.shape), wp, bp)
+
+    return chain
+
+
+def check_sra_block(torch, dev) -> dict:
+    """``sra_block`` at the four PVTv2-b2 stage shapes (bf16, Tkv 121) and
+    one float32 case, against ``sra_block_plain``.  The main-path times are
+    one forward's worth (3 + 4 + 6 + 3 calls)."""
+    from pranet2_tpu_torch.ops import pvt_attn
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    cases = [(si, torch.bfloat16) for si in range(4)]
+    cases.append((2, torch.float32))
+    rows = []
+    for si, dt in cases:
+        args, (d, nh, sr, depth, tkv) = _sra_block_case(torch, g, dev, dt,
+                                                        si)
+        x = args[0]
+        got = pvt_attn.sra_block(*args, nh, sr)
+        want = pvt_attn.sra_block_plain(*args, nh, sr)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        err, over = _held(got, want, PVT_TOL[name],
+                          f"sra_block at {tuple(x.shape)} nh {nh} sr {sr} "
+                          f"{name}", base=x)
+        ops, mma = _sra_block_work(x.numel() // d, d, nh, sr, tkv)
+        b, by = bound_ms(nbytes(*args) + nbytes(got), ops, mma,
+                         BF16_MMA_PER_S if dt == torch.bfloat16
+                         else F32_OPS_PER_S)
+        rows.append({"shape": list(x.shape), "heads": nh, "sr": sr,
+                     "tkv": tkv, "dtype": name,
+                     "main_path": dt == torch.bfloat16,
+                     "calls_per_forward": depth, "max_abs_err": err,
+                     "excess": over,
+                     "ms": time_ms(
+                         lambda: pvt_attn.sra_block(*args, nh, sr)),
+                     "plain_ms": time_ms(
+                         lambda: pvt_attn.sra_block_plain(*args, nh, sr),
+                         reps=3, rounds=3),
+                     "bound_ms": b, "bound_by": by,
+                     "library_chain_ms": time_ms(
+                         _sra_chain(torch, args, nh, sr))})
+    out = _summary("sra_block", "pranet2_tpu_torch/csrc/pvt_kv.cu",
+                   "pranet2_tpu/ops/pvt_attn.py:221", rows)
+    # the K/V launch, then row 6's attention kernel with its residual
+    # rounded once
+    out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/pvt_attn.cu"]
+    return out
+
+
+def check_pvt_block(torch, dev) -> dict:
+    """``pvt_block`` at the four PVTv2-b2 stage shapes (bf16) and one
+    float32 case, against ``pvt_block_plain``.  The main-path times are one
+    forward's worth (3 + 4 + 6 + 3 calls)."""
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [(si, torch.bfloat16) for si in range(4)]
+    cases.append((2, torch.float32))
+    rows = []
+    for si, dt in cases:
+        args, (d, nh, sr, depth, tkv) = _sra_block_case(torch, g, dev, dt,
+                                                        si)
+        c = d * PVT_STAGES[si][3]
+        p = _pvt_params(torch, g, dev, dt, {
+            "w_ln": (d,), "b_ln": (d,), "w1": (c, d), "b1": (c,),
+            "dw": (c, 1, 3, 3), "dwb": (c,), "w2": (d, c), "b2": (d,)})
+        mlp = (p["w_ln"], p["b_ln"], p["w1"], p["b1"], p["dw"], p["dwb"],
+               p["w2"], p["b2"])
+        x = args[0]
+        got = pvt_block(*args, *mlp, nh, sr)
+        want = pvt_block_plain(*args, *mlp, nh, sr)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        err, over = _held(got, want, PVT_TOL[name],
+                          f"pvt_block at {tuple(x.shape)} nh {nh} sr {sr} C "
+                          f"{c} {name}", base=x)
+        m = x.numel() // d
+        ops, mma = _sra_block_work(m, d, nh, sr, tkv)
+        # the MLP half per token, outside the products: LN 7D, fc1 bias C,
+        # 9 taps 18C, dw bias C, GELU 17C, fc2 bias and residual 2D
+        b, by = bound_ms(nbytes(*args, *mlp) + nbytes(got),
+                         ops + m * (9 * d + 37 * c), mma + 4 * m * d * c,
+                         BF16_MMA_PER_S if dt == torch.bfloat16
+                         else F32_OPS_PER_S)
+        attn = _sra_chain(torch, args, nh, sr)
+        ln2 = (mlp[0].to(dt), mlp[1].to(dt))
+
+        def chain():
+            h = attn()
+            y = F.linear(F.layer_norm(h, (d,), *ln2, 1e-6), mlp[2], mlp[3])
+            y = F.conv2d(y.permute(0, 3, 1, 2), mlp[4], mlp[5], padding=1,
+                         groups=c)
+            return h + F.linear(F.gelu(y.permute(0, 2, 3, 1)), mlp[6],
+                                mlp[7])
+
+        rows.append({"shape": list(x.shape), "heads": nh, "sr": sr,
+                     "hidden": c, "dtype": name,
+                     "main_path": dt == torch.bfloat16,
+                     "calls_per_forward": depth, "max_abs_err": err,
+                     "excess": over,
+                     "ms": time_ms(lambda: pvt_block(*args, *mlp, nh, sr)),
+                     "plain_ms": time_ms(
+                         lambda: pvt_block_plain(*args, *mlp, nh, sr),
+                         reps=3, rounds=3),
+                     "bound_ms": b, "bound_by": by,
+                     "library_chain_ms": time_ms(chain)})
+    return _summary("pvt_block", "pranet2_tpu_torch/csrc/pvt_block.cu",
+                    "pranet2_tpu/ops/pvt_block.py:105", rows)
+
+
+def check_dwconv(torch, dev) -> dict:
+    """``depthwise_conv3x3`` at PVTv2-b2's four hidden shapes, float32 and
+    bf16, against ``depthwise_conv3x3_plain``; the library call is one
+    grouped ``F.conv2d`` (TF32 off).  No model calls it, so the entry's
+    times are the four bf16 shapes' sum, one call each."""
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.ops import dwconv
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for side, d, _, ratio, _, _ in PVT_STAGES:
+            c = d * ratio
+            x = torch.randn((BATCH, side, side, c), generator=g,
+                            device=dev).to(dt)
+            w = (torch.randn((3, 3, c), generator=g, device=dev) / 3).to(dt)
+            got = dwconv.depthwise_conv3x3(x, w)
+            want = dwconv.depthwise_conv3x3_plain(x, w)
+            torch.cuda.synchronize()
+            name = str(dt).removeprefix("torch.")
+            err, over = _held(
+                got, want, DW_TOL[name],
+                f"depthwise_conv3x3 at {tuple(x.shape)} {name}")
+            # per output: nine products and nine sums
+            b, by = bound_ms(nbytes(x, w, got), 18 * got.numel())
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(2, 0, 1)[:, None].contiguous()
+            rows.append({"shape": list(x.shape), "dtype": name,
+                         "max_abs_err": err, "excess": over,
+                         "ms": time_ms(
+                             lambda: dwconv.depthwise_conv3x3(x, w)),
+                         "plain_ms": time_ms(
+                             lambda: dwconv.depthwise_conv3x3_plain(x, w),
+                             reps=3, rounds=3),
+                         "bound_ms": b, "bound_by": by,
+                         "library_ms": time_ms(lambda: F.conv2d(
+                             xc, wc, padding=1, groups=c))})
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    return {"name": "depthwise_conv3x3", "route": "cuda",
+            "source": "pranet2_tpu_torch/csrc/dwconv.cu",
+            "replaces": "pranet2_tpu/ops/dwconv.py:60",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "excess": max(r["excess"] for r in rows),
+            **{k: sum(r[k] for r in bf16)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes", "shapes": rows}
+
+
 def _res2_cases(torch):
     return [(li, dt) for dt in (torch.bfloat16, torch.float32)
             for li in range(len(RES2_LAYERS))]
@@ -500,34 +725,49 @@ def synthetic_images(np, n: int) -> list:
 
 # served paths: label -> (model, get_model keyword arguments, launches per
 # forward by kernel)
-_NO_PVT = {"mlp_block": 0, "sra_attention": 0}
+_NO_PVT = {"mlp_block": 0, "sra_attention": 0, "sra_block": 0,
+           "pvt_block": 0}
 _NO_RES2 = {"fused_bottle2neck": 0, "fused_tail": 0}
+# no model calls the depthwise 3x3 (the JAX package only exports it)
+_PVT = {"max_pool3x3s2": 0, "dsra_gate": 3, **_NO_RES2,
+        "depthwise_conv3x3": 0}
 PATHS = {
     "pranet_v2": ("pranet_v2", {}, {"max_pool3x3s2": 1, "dsra_gate": 3,
-                                    **_NO_RES2, **_NO_PVT}),
+                                    **_NO_RES2, **_NO_PVT,
+                                    "depthwise_conv3x3": 0}),
     "pranet_v2_fused": ("pranet_v2", {"fused": True, "tailfuse": True},
                         {"max_pool3x3s2": 1, "dsra_gate": 3,
                          "fused_bottle2neck": 12, "fused_tail": 4,
-                         **_NO_PVT}),
-    "pvt_pranet_v2": ("pvt_pranet_v2", {}, {"max_pool3x3s2": 0,
-                                            "dsra_gate": 3, **_NO_RES2,
+                         **_NO_PVT, "depthwise_conv3x3": 0}),
+    "pvt_pranet_v2": ("pvt_pranet_v2", {}, {**_PVT, **_NO_PVT,
                                             "mlp_block": 16,
                                             "sra_attention": 16}),
+    "pvt_pranet_v2_attn_v2": ("pvt_pranet_v2", {"attn_impl": "v2"},
+                              {**_PVT, **_NO_PVT, "mlp_block": 16,
+                               "sra_block": 16}),
+    "pvt_pranet_v2_blockfuse": ("pvt_pranet_v2", {"blockfuse": True},
+                                {**_PVT, **_NO_PVT, "pvt_block": 16}),
 }
-MLP_MODES = {"pranet_v2": {"plain": 0, "stats": 0, "final_ln": 0},
-             "pranet_v2_fused": {"plain": 0, "stats": 0, "final_ln": 0},
-             "pvt_pranet_v2": {"plain": 0, "stats": 12, "final_ln": 4}}
+_NO_MLP = {"plain": 0, "stats": 0, "final_ln": 0}
+MLP_MODES = {"pranet_v2": _NO_MLP, "pranet_v2_fused": _NO_MLP,
+             "pvt_pranet_v2": {"plain": 0, "stats": 12, "final_ln": 4},
+             "pvt_pranet_v2_attn_v2": {"plain": 12, "stats": 0,
+                                       "final_ln": 4},
+             "pvt_pranet_v2_blockfuse": _NO_MLP}
 
 
 def _wrappers():
-    from pranet2_tpu_torch.ops import (dsra, pvt_attn, pvt_mlp, res2_block,
-                                       res2_tail, stem)
+    from pranet2_tpu_torch.ops import (dsra, dwconv, pvt_attn, pvt_mlp,
+                                       res2_block, res2_tail, stem)
+    from pranet2_tpu_torch.ops.pvt_block import pvt_block
 
     return {"max_pool3x3s2": stem.max_pool3x3s2, "dsra_gate": dsra.dsra_gate,
             "fused_bottle2neck": res2_block.fused_bottle2neck,
             "fused_tail": res2_tail.fused_tail,
             "mlp_block": pvt_mlp.mlp_block,
-            "sra_attention": pvt_attn.sra_attention}
+            "sra_attention": pvt_attn.sra_attention,
+            "sra_block": pvt_attn.sra_block, "pvt_block": pvt_block,
+            "depthwise_conv3x3": dwconv.depthwise_conv3x3}
 
 
 def _reset_counts():
@@ -629,7 +869,8 @@ def device_time(torch, fn, forwards: int = 5) -> dict:
     ported = sum(ms for k, ms in rows if any(
         n in k for n in ("maxpool3x3s2", "dsra_gate", "fc1_kernel",
                          "dw_gelu_kernel", "fc2_kernel", "sra_kernel",
-                         "res2_conv_kernel", "res2_split_epilogue")))
+                         "kv_kernel", "dw3x3_kernel", "res2_conv_kernel",
+                         "res2_split_epilogue")))
     return {"busy_ms": sum(ms for _, ms in rows), "ported_kernels_ms": ported,
             "top": [{"name": k[:90], "ms": ms} for k, ms in rows[:10]]}
 
@@ -705,7 +946,9 @@ def main() -> int:
 
     kernels = [check_maxpool(torch, dev), check_gate(torch, dev),
                check_res2_tail(torch, dev), check_bottle2neck(torch, dev),
-               check_pvt_mlp(torch, dev), check_sra_attention(torch, dev)]
+               check_pvt_mlp(torch, dev), check_sra_attention(torch, dev),
+               check_sra_block(torch, dev), check_pvt_block(torch, dev),
+               check_dwconv(torch, dev)]
     print("kernels checked against their plain versions")
 
     from pranet2_tpu_torch import get_model

@@ -148,10 +148,28 @@ struct WarpBlock<__nv_bfloat16> {
   }
 };
 
-// LayerNorm of rows [row0, row0 + rows) of x (d channels each; rows at or
-// past `valid` do not exist and become zeros) into ys (rows x d, type T).
+// LayerNorm of one row of d channels, src to dst (type T), by one warp.
 // The TPU kernels' arithmetic: float32 statistics with var = E[x^2] - mu^2,
 // ((x - mu) * rsqrt(var + eps)) * gamma + beta, then a cast to T.
+template <typename T>
+__device__ void layer_norm_row(const T* __restrict__ src, int d, const float* __restrict__ gamma,
+                               const float* __restrict__ beta, float eps, T* dst) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = to_f32<T>(src[c]);
+    s += v;
+    ss += v * v;
+  }
+  const float mu = warp_sum(s) / d;
+  const float var = warp_sum(ss) / d - mu * mu;
+  const float rstd = rsqrtf(var + eps);
+  for (int c = lane; c < d; c += 32)
+    dst[c] = from_f32<T>((to_f32<T>(src[c]) - mu) * rstd * gamma[c] + beta[c]);
+}
+
+// LayerNorm of rows [row0, row0 + rows) of x (d channels each; rows at or
+// past `valid` do not exist and become zeros) into ys (rows x d, type T).
 // One warp per row; every thread of the block calls it.
 template <typename T>
 __device__ void layer_norm_rows(const T* __restrict__ x, long long row0, long long valid,
@@ -164,19 +182,25 @@ __device__ void layer_norm_rows(const T* __restrict__ x, long long row0, long lo
       for (int c = lane; c < d; c += 32) dst[c] = from_f32<T>(0.f);
       continue;
     }
-    const T* src = x + (row0 + r) * d;
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float v = to_f32<T>(src[c]);
-      s += v;
-      ss += v * v;
-    }
-    const float mu = warp_sum(s) / d;
-    const float var = warp_sum(ss) / d - mu * mu;
-    const float rstd = rsqrtf(var + eps);
-    for (int c = lane; c < d; c += 32)
-      dst[c] = from_f32<T>((to_f32<T>(src[c]) - mu) * rstd * gamma[c] + beta[c]);
+    layer_norm_row<T>(x + (row0 + r) * d, d, gamma, beta, eps, dst);
   }
+}
+
+// Float32 rows of a block-sized matrix in shared memory through a product:
+// each warp's staged kSpan x kSpan result `st` goes to fn(r, col, value) for
+// the block's rows r < rows_valid (r and col relative to the tile (tr, tc)).
+// Every lane of the warp calls it; it syncs the warp before and after.
+template <typename T, typename Fn>
+__device__ __forceinline__ void for_staged(const float* st, int tr, int tc, int rows_valid,
+                                           Fn fn) {
+  constexpr int S = kSpan<T>;
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  for (int e = lane; e < S * S; e += 32) {
+    const int r = tr * S + e / S;
+    if (r < rows_valid) fn(r, tc * S + e % S, st[e]);
+  }
+  __syncwarp();
 }
 
 }  // namespace tile

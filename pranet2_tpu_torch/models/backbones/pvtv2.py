@@ -30,6 +30,23 @@ embed's weight type), not by the device:
 * otherwise (float32): the module chain, with exact-erf GELU and plain
   softmax attention.
 
+Two options select the JAX package's opt-in PVT kernels, in bfloat16:
+
+* ``attn_impl``: "v1" (the default, above), "v2" or "auto:N", the JAX
+  package's ``PVT_ATTN_IMPL`` (``pvtv2.py:257-266``).  A v2 stage runs each
+  attention half, its K/V path included, through ``ops.pvt_attn.sra_block``;
+  its blocks take no LN1 statistics, so their MLPs run in "plain" mode
+  (the last one in "final_ln").  "auto:N" takes v2 for the stages with
+  sr <= N (N is 1 when left out), v1 for the others.
+* ``blockfuse``: in eval, every block through ``ops.pvt_block.pvt_block``,
+  both halves in one call, and the stage LayerNorm on its own (the JAX
+  package's ``PRANET2_FUSED=blockfuse`` or ``PVTv2(fused_block=True)``,
+  ``pvtv2.py:343-357,499-510``); it takes precedence over ``attn_impl``.
+  Training keeps the other routes.
+
+``stage_route`` holds the whole rule.  The parameters and the ``state_dict``
+are the same on every route.
+
 The JAX package's space-to-depth stage-1 patch embed is a TPU restructure of
 the same convolution and is not carried over.  Drop path is the identity at
 eval; training comes later.
@@ -42,7 +59,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pranet2_tpu_torch.nn import LayerNorm
-from pranet2_tpu_torch.ops.pvt_attn import sra_attention
+from pranet2_tpu_torch.ops.pvt_attn import sra_attention, sra_block
+from pranet2_tpu_torch.ops.pvt_block import pvt_block
 from pranet2_tpu_torch.ops.pvt_mlp import ln_stats, mlp_block
 
 PVT_CONFIGS = {
@@ -61,6 +79,32 @@ PVT_CONFIGS = {
 }
 
 SR_RATIOS = (8, 4, 2, 1)
+
+
+def stage_attn_impl(attn_impl: str, sr: int) -> str:
+    """The attention kernel, "v1" or "v2", of a stage of spatial-reduction
+    ratio ``sr`` under ``attn_impl`` ("v1", "v2" or "auto:N"; "auto" is
+    "auto:1"): the JAX package's rule for ``PVT_ATTN_IMPL``."""
+    if attn_impl.startswith("auto"):
+        max_sr = int(attn_impl.split(":")[1]) if ":" in attn_impl else 1
+        return "v2" if sr <= max_sr else "v1"
+    if attn_impl not in ("v1", "v2"):
+        raise ValueError(f"attn_impl must be 'v1', 'v2' or 'auto:N', got "
+                         f"{attn_impl!r}")
+    return attn_impl
+
+
+def stage_route(kernels: bool, training: bool, attn_impl: str,
+                blockfuse: bool, sr: int) -> str:
+    """How the blocks of a stage run: "chain" (the module chain: no
+    kernels, as in float32), "block" (``pvt_block`` per block, then the
+    stage LN: ``blockfuse`` in eval), else the attention kernel "v1" or
+    "v2" with ``mlp_block``."""
+    if not kernels:
+        return "chain"
+    if blockfuse and not training:
+        return "block"
+    return stage_attn_impl(attn_impl, sr)
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -144,39 +188,75 @@ class Block(nn.Module):
         x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
-    def forward_kernels(self, x, ln1_stats=None, final_norm=None):
+    def attn_args(self):
+        """``sra_block``'s parameters after x: LN1, q, the K/V path (None
+        at sr = 1), kv, proj."""
+        n1, a = self.norm1, self.attn
+        kv_path = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias)
+                   if a.sr_ratio > 1 else (None,) * 4)
+        return (n1.weight, n1.bias, a.q.weight, a.q.bias, *kv_path,
+                a.kv.weight, a.kv.bias, a.proj.weight, a.proj.bias)
+
+    def mlp_args(self):
+        """``mlp_block``'s parameters after x: LN2, fc1, dwconv, fc2."""
+        n2, m = self.norm2, self.mlp
+        return (n2.weight, n2.bias, m.fc1.weight, m.fc1.bias,
+                m.dwconv.dwconv.weight, m.dwconv.dwconv.bias, m.fc2.weight,
+                m.fc2.bias)
+
+    def forward_kernels(self, x, ln1_stats=None, final_norm=None,
+                        whole_half=False):
         """Both halves through the kernels (bfloat16 path).
 
         ``ln1_stats``: the previous block's (mu, rstd) of x, which the K/V
         path's LN1 applies instead of reducing x again.  ``final_norm``: the
-        stage-end LayerNorm, applied in the MLP's epilogue.  Returns the
-        block output and its (mu, rstd), or None after ``final_norm``.
+        stage-end LayerNorm, applied in the MLP's epilogue.  ``whole_half``:
+        the attention half through ``sra_block``, which takes no statistics
+        and makes the MLP give none.  Returns the block output and its
+        (mu, rstd), or None after ``final_norm`` or with ``whole_half``.
         """
-        n1, attn, n2, mlp = self.norm1, self.attn, self.norm2, self.mlp
-        if ln1_stats is None:
-            ln1_stats = ln_stats(x.float(), n1.eps)
-        mu, rstd = (s[..., None] for s in ln1_stats)
-        y = ((x.float() - mu) * rstd * n1.weight + n1.bias).to(x.dtype)
-        x = sra_attention(x, n1.weight, n1.bias, attn.q.weight, attn.q.bias,
-                          attn.kv_tokens(y), attn.proj.weight,
-                          attn.proj.bias, attn.num_heads, n1.eps)
-        args = (x, n2.weight, n2.bias, mlp.fc1.weight, mlp.fc1.bias,
-                mlp.dwconv.dwconv.weight, mlp.dwconv.dwconv.bias,
-                mlp.fc2.weight, mlp.fc2.bias, n2.eps)
+        n1, attn, n2 = self.norm1, self.attn, self.norm2
+        if whole_half:
+            x = sra_block(x, *self.attn_args(), attn.num_heads,
+                          attn.sr_ratio, n1.eps)
+        else:
+            if ln1_stats is None:
+                ln1_stats = ln_stats(x.float(), n1.eps)
+            mu, rstd = (s[..., None] for s in ln1_stats)
+            y = ((x.float() - mu) * rstd * n1.weight + n1.bias).to(x.dtype)
+            x = sra_attention(x, n1.weight, n1.bias, attn.q.weight,
+                              attn.q.bias, attn.kv_tokens(y),
+                              attn.proj.weight, attn.proj.bias,
+                              attn.num_heads, n1.eps)
+        args = (x, *self.mlp_args(), n2.eps)
         if final_norm is not None:
             return mlp_block(*args, final_ln=(final_norm.weight,
                                               final_norm.bias),
                              final_eps=final_norm.eps), None
+        if whole_half:
+            return mlp_block(*args), None
         out, mu, rstd = mlp_block(*args, stats_eps=n1.eps)
         return out, (mu, rstd)
 
+    def forward_block(self, x):
+        """The whole block in one ``pvt_block`` call (bfloat16 eval path)."""
+        return pvt_block(x, *self.attn_args(), *self.mlp_args(),
+                         self.attn.num_heads, self.attn.sr_ratio,
+                         self.norm1.eps, self.norm2.eps)
+
 
 class PVTv2(nn.Module):
-    """Returns the 4-stage NCHW feature pyramid (strides 4/8/16/32)."""
+    """Returns the 4-stage NCHW feature pyramid (strides 4/8/16/32).
+    ``attn_impl`` and ``blockfuse`` choose the bfloat16 kernels (see the
+    module's docstring)."""
 
     def __init__(self, embed_dims=(64, 128, 320, 512), depths=(3, 4, 6, 3),
-                 num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4)):
+                 num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4),
+                 attn_impl: str = "v1", blockfuse: bool = False):
         super().__init__()
+        for sr in SR_RATIOS:
+            stage_attn_impl(attn_impl, sr)  # refuses an unknown name now
+        self.attn_impl, self.blockfuse = attn_impl, blockfuse
         cin = 3
         for s, dim in enumerate(embed_dims, start=1):
             patch, stride = (7, 4) if s == 1 else (3, 2)
@@ -194,20 +274,24 @@ class PVTv2(nn.Module):
         for s in range(1, 5):
             x = getattr(self, f"patch_embed{s}")(x)
             blocks, norm = getattr(self, f"block{s}"), getattr(self, f"norm{s}")
-            if kernels:
+            route = stage_route(kernels, self.training, self.attn_impl,
+                                self.blockfuse, SR_RATIOS[s - 1])
+            if route in ("chain", "block"):
+                for blk in blocks:
+                    x = blk(x) if route == "chain" else blk.forward_block(x)
+                x = norm(x)
+            else:
                 stats = None
                 for i, blk in enumerate(blocks):
                     last = i == len(blocks) - 1
                     x, stats = blk.forward_kernels(
-                        x, stats, norm if last else None)
-            else:
-                for blk in blocks:
-                    x = blk(x)
-                x = norm(x)
+                        x, stats, norm if last else None, route == "v2")
             x = x.permute(0, 3, 1, 2).contiguous()
             outs.append(x)
         return tuple(outs)
 
 
-def pvt_v2(variant: str = "b2") -> PVTv2:
-    return PVTv2(**PVT_CONFIGS[variant])
+def pvt_v2(variant: str = "b2", **kw) -> PVTv2:
+    """PVTv2 of ``variant``; ``kw`` (``attn_impl``, ``blockfuse``) go to
+    ``PVTv2``."""
+    return PVTv2(**PVT_CONFIGS[variant], **kw)

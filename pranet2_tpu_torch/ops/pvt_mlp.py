@@ -65,7 +65,9 @@ def ln_stats(xf: torch.Tensor, eps: float):
     return mu, torch.rsqrt(var + eps)
 
 
-def _ln(xf, weight, bias, eps):
+def layer_norm_f32(xf, weight, bias, eps):
+    """The kernels' LayerNorm of float32 ``xf`` over its last axis, in
+    float32: ``(xf - mu) * rstd * weight + bias``."""
     mu, rstd = ln_stats(xf, eps)
     y = (xf - mu[..., None]) * rstd[..., None]
     return y * weight.float() + bias.float()
@@ -78,7 +80,7 @@ def mlp_block_plain(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
     dt = x.dtype
     n, h, w, d = x.shape
     xf = x.float()
-    yb = _ln(xf, norm_w, norm_b, eps).to(dt)
+    yb = layer_norm_f32(xf, norm_w, norm_b, eps).to(dt)
     z = yb.float() @ w1.float().t() + b1.float()           # (N, H, W, C)
     zp = F.pad(z, (0, 0, 1, 1, 1, 1))
     taps = dw_w.float()[:, 0]                                # (C, 3, 3)
@@ -90,7 +92,7 @@ def mlp_block_plain(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
     g = gelu_poly(acc).to(dt)
     out = g.float() @ w2.float().t() + b2.float()            # (N, H, W, D)
     if final_ln is not None:
-        return _ln(xf + out, final_ln[0], final_ln[1], final_eps).to(dt)
+        return layer_norm_f32(xf + out, final_ln[0], final_ln[1], final_eps).to(dt)
     ob = x + out.to(dt)
     if stats_eps is None:
         return ob

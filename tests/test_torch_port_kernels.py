@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from pranet2_tpu_torch import get_model, ops
-from pranet2_tpu_torch.ops import (dsra, pvt_attn, pvt_mlp, res2_block,
-                                   res2_tail, stem)
+from pranet2_tpu_torch.ops import (dsra, dwconv, pvt_attn, pvt_mlp,
+                                   res2_block, res2_tail, stem)
+from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
 from pranet2_tpu_torch.testing import excess, random_bottle2neck
+import torch_pvt_faults
 import torch_res2_faults
 
 
@@ -398,3 +400,180 @@ def test_fused_pranet_v2_launches_both_kernels(no_tf32):
     for g, w in zip(got, want):
         assert ((g.float() - w.float()).abs().max()
                 / w.float().abs().max()).item() < 0.06
+
+
+# The whole-half SRA, whole-block and depthwise kernels vs their plain
+# versions, with PVT_TOL; the depthwise conv within 1e-5 of max |out| in
+# float32 (the same sums in the same order) and one bf16 step (tol 0: the
+# output's rounding).
+DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 0.0}
+
+
+def _sra_block_args(g, n, h, w, d, nh, sr, dtype):
+    """x and ``sra_block``'s parameters; the K/V path's None at sr = 1."""
+    f32 = torch.float32
+    kv_path = (None,) * 4
+    if sr > 1:
+        kv_path = (_rand(g, (d, d, sr, sr), dtype, (sr * sr * d) ** -0.5),
+                   _rand(g, (d,), dtype, 0.1), _rand(g, (d,), f32, 0.1, 1.0),
+                   _rand(g, (d,), f32, 0.1))
+    return (_rand(g, (n, h, w, d), dtype), _rand(g, (d,), f32, 0.1, 1.0),
+            _rand(g, (d,), f32, 0.1), _rand(g, (d, d), dtype, d ** -0.5),
+            _rand(g, (d,), dtype, 0.1), *kv_path,
+            _rand(g, (2 * d, d), dtype, d ** -0.5),
+            _rand(g, (2 * d,), dtype, 0.1),
+            _rand(g, (d, d), dtype, d ** -0.5), _rand(g, (d,), dtype, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,d,nh,sr", [
+    (2, 88, 88, 64, 1, 8),     # the four PVTv2-b2 stages at 352x352
+    (2, 44, 44, 128, 2, 4),
+    (2, 22, 22, 320, 5, 2),
+    (2, 11, 11, 512, 8, 1),
+    (1, 13, 10, 128, 2, 4),    # H, W not multiples of sr: the floor
+    (3, 17, 9, 64, 1, 8),      # two K/V tokens, a ragged query tile
+])
+def test_sra_block_kernel_matches_plain(cuda, n, h, w, d, nh, sr, dtype):
+    g = torch.Generator(device=cuda).manual_seed(h * w + d + sr)
+    args = _sra_block_args(g, n, h, w, d, nh, sr, dtype)
+    before = (pvt_attn.sra_block.launches, pvt_attn.sra_attention.launches)
+    got = ops.sra_block(*args, nh, sr)
+    torch.cuda.synchronize()
+    assert (pvt_attn.sra_block.launches,
+            pvt_attn.sra_attention.launches) == (before[0] + 1, before[1])
+    want = pvt_attn.sra_block_plain(*args, nh, sr)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_held(got, want, PVT_TOL[dtype], args[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,d,nh,sr,c", [
+    (2, 88, 88, 64, 1, 8, 512),    # stages 1 and 4 of PVTv2-b2 at 352x352
+    (2, 11, 11, 512, 8, 1, 2048),
+    (1, 13, 10, 128, 2, 4, 256),   # the floor, 130 rows
+    (3, 5, 7, 64, 2, 2, 128),      # 35 rows, a ragged last tile everywhere
+])
+def test_pvt_block_kernel_matches_plain(cuda, n, h, w, d, nh, sr, c, dtype):
+    g = torch.Generator(device=cuda).manual_seed(h * w + d + c)
+    args = (*_sra_block_args(g, n, h, w, d, nh, sr, dtype),
+            *_mlp_args(g, 1, 1, 1, d, c, dtype)[1:9])
+    before = pvt_block.launches
+    got = ops.pvt_block(*args, nh, sr)
+    torch.cuda.synchronize()
+    assert pvt_block.launches == before + 1
+    want = pvt_block_plain(*args, nh, sr)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_held(got, want, PVT_TOL[dtype], args[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 88, 88, 512),    # PVTv2-b2's stage-1 and stage-4 hidden maps
+    (2, 11, 11, 2048),
+    (2, 6, 9, 20),       # C = 20: 16-byte loads in float32, not in bf16
+    (1, 7, 5, 3),        # C = 3: one channel a thread
+    (3, 1, 1, 8),        # one pixel: every tap but the centre a border
+])
+def test_dwconv_kernel_matches_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = _rand(g, shape, dtype)
+    w = _rand(g, (3, 3, shape[-1]), dtype, 1 / 3)
+    before = dwconv.depthwise_conv3x3.launches
+    got = ops.depthwise_conv3x3(x, w)
+    torch.cuda.synchronize()
+    assert dwconv.depthwise_conv3x3.launches == before + 1
+    want = dwconv.depthwise_conv3x3_plain(x, w)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_held(got, want, DW_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_pvt_opt_wrappers_refuse_bad_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    args = list(_sra_block_args(g, 1, 8, 8, 64, 2, 4, torch.bfloat16))
+    with pytest.raises(ValueError):     # H below sr
+        ops.sra_block(args[0][:, :3].contiguous(), *args[1:], 2, 4)
+    with pytest.raises(ValueError):     # a conv weight for sr 2
+        ops.sra_block(*args[:5], args[5][..., :2, :2].contiguous(),
+                      *args[6:], 2, 4)
+    with pytest.raises(TypeError):      # kv LayerNorm parameters not float32
+        ops.sra_block(*args[:7], args[7].bfloat16(), *args[8:], 2, 4)
+    with pytest.raises(ValueError):     # head width 16
+        ops.sra_block(*args, 4, 4)
+    mlp = _mlp_args(g, 1, 1, 1, 64, 128, torch.bfloat16)[1:9]
+    with pytest.raises(ValueError):     # C = 48, not a multiple of 32
+        ops.pvt_block(*args, mlp[0], mlp[1], mlp[2][:48], mlp[3][:48],
+                      mlp[4][:48], mlp[5][:48], mlp[6][:, :48].contiguous(),
+                      mlp[7], 2, 4)
+    x = _rand(g, (1, 4, 4, 8), torch.bfloat16)
+    w = _rand(g, (3, 3, 8), torch.bfloat16)
+    with pytest.raises(ValueError):     # torch's (C, 1, 3, 3) layout
+        ops.depthwise_conv3x3(x, w.permute(2, 0, 1)[:, None].contiguous())
+    with pytest.raises(TypeError):
+        ops.depthwise_conv3x3(x, w.float())
+    with pytest.raises(TypeError):
+        ops.depthwise_conv3x3(x.half(), w.half())
+    with pytest.raises(ValueError):     # NCHW memory
+        ops.depthwise_conv3x3(x.transpose(1, 3), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", torch_pvt_faults.FAULTS)
+def test_pvt_opt_checks_reject_planted_faults(cuda, fault):
+    """The kernels held to a plain version with one fault planted fail the
+    checks above.  Stage-2 shapes, bf16 (float32 for the depthwise
+    conv)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if fault == "dw_taps_transposed":
+        x = _rand(g, (2, 44, 44, 1024), torch.float32)
+        w = _rand(g, (3, 3, 1024), torch.float32, 1 / 3)
+        got = ops.depthwise_conv3x3(x, w)
+        _assert_held(got, dwconv.depthwise_conv3x3_plain(x, w),
+                     DW_TOL[torch.float32])
+        bad = torch_pvt_faults.depthwise_conv3x3(fault, x, w)
+        assert excess(got, bad, None, DW_TOL[torch.float32]) > 1
+        return
+    args = _sra_block_args(g, 2, 44, 44, 128, 2, 4, torch.bfloat16)
+    tol = PVT_TOL[torch.bfloat16]
+    if fault == "mlp_residual_from_x":
+        mlp = _mlp_args(g, 1, 1, 1, 128, 1024, torch.bfloat16)[1:9]
+        got = ops.pvt_block(*args, *mlp, 2, 4)
+        _assert_held(got, pvt_block_plain(*args, *mlp, 2, 4), tol, args[0])
+        bad = torch_pvt_faults.pvt_block(fault, *args, *mlp, num_heads=2,
+                                         sr=4)
+    else:
+        got = ops.sra_block(*args, 2, 4)
+        _assert_held(got, pvt_attn.sra_block_plain(*args, 2, 4), tol,
+                     args[0])
+        bad = torch_pvt_faults.sra_block(fault, *args, 2, 4)
+    assert excess(got, bad, args[0], tol) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,launches", [
+    ({"attn_impl": "v2"}, (16, 0, 16, 0)),
+    ({"blockfuse": True}, (0, 0, 0, 16)),
+    ({"attn_impl": "auto:2"}, (9, 7, 16, 0)),   # stages 3-4 v2, 1-2 v1
+], ids=["attn_impl_v2", "blockfuse", "auto_2"])
+def test_pvt_pranet_v2_options_reach_the_kernels(no_tf32, kw, launches):
+    """PVTv2-b2 at full depth, 64x64, bf16: the (sra_block, sra_attention,
+    mlp_block, pvt_block) launches of one forward, and the maps within 0.1
+    of the float32 module chain's."""
+    ref = get_model("pvt_pranet_v2", device=no_tf32).eval()
+    model = get_model("pvt_pranet_v2", device=no_tf32, dtype=torch.bfloat16,
+                      **kw).eval()
+    model.load_state_dict(ref.state_dict())
+    x = torch.randn((2, 3, 64, 64), device=no_tf32)
+    counters = (pvt_attn.sra_block, pvt_attn.sra_attention,
+                pvt_mlp.mlp_block, pvt_block)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        got, want = model(x), ref(x)
+    assert tuple(f.launches - b for f, b in zip(counters, before)) == launches
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert ((g.float() - w).abs().max() / w.abs().max()).item() < 0.1
