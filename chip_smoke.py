@@ -9,7 +9,9 @@
    serving paths give it, and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (CUDA events, median);
    for the PVT and Res2Net kernels, which no single call computes, it times
-   the eager chain of PyTorch calls instead (``library_chain_ms``).  The
+   the eager chain of PyTorch calls instead (``library_chain_ms``); the
+   whole-half and whole-block kernels' launches are also timed apart, with
+   their grids, from a device trace (``launch_profile``).  The
    depthwise 3x3, which no model calls, is checked at PVTv2-b2's hidden
    shapes.
 3. Serves five paths of the port (full width and depth, random weights
@@ -39,6 +41,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -113,6 +116,81 @@ def bound_ms(nbytes: int, ops: int, mma_ops: int = 0,
     work[mma_per_s] = work.get(mma_per_s, 0) + mma_ops
     t_ops = max(n / rate for rate, n in work.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the hand kernels' launches by name in a device trace
+LAUNCH_LABELS = {"patch_kernel": "kv_patch", "finish_kernel": "kv_finish",
+                 "sra_kernel": "attention", "mlp_kernel": "mlp"}
+
+
+def _trace(torch, fn, calls: int) -> list:
+    """The kernel events of ``calls`` calls of ``fn`` in a torch.profiler
+    trace (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def launch_profile(torch, fn, expect, calls: int = 5) -> dict:
+    """Device time per call and grids of each labelled kernel ``fn``
+    launches (``{label: {"ms", "grids"}}``, every distinct grid of the
+    label's events); traced again, up to three times, while a label of
+    ``expect`` is missing or an event of one carries no grid (the tracer
+    now and then drops a run's events)."""
+    for _ in range(3):
+        out = {}
+        for e in _trace(torch, fn, calls):
+            for key, label in LAUNCH_LABELS.items():
+                if key in e.get("name", ""):
+                    row = out.setdefault(label, {"ms": 0.0, "grids": []})
+                    row["ms"] += e.get("dur", 0.0) / 1e3 / calls
+                    grid = e.get("args", {}).get("grid")
+                    if grid not in row["grids"]:
+                        row["grids"].append(grid)
+        if set(expect) <= set(out) and all(None not in out[k]["grids"]
+                                           for k in expect):
+            return out
+    raise AssertionError(f"no device trace, or no grid, of {sorted(expect)}: "
+                         f"{out}")
+
+
+def kernel_ms(torch, fn, calls: int = 20) -> float:
+    """Device time a call of every kernel ``fn`` launches (torch.profiler's
+    trace): the GPU's own time, free of the host's cost of each call."""
+    for _ in range(3):
+        ms = sum(e.get("dur", 0.0) for e in _trace(torch, fn, calls))
+        if ms > 0:
+            return ms / 1e3 / calls
+    raise AssertionError("no kernel in three device traces")
+
+
+def host_ms(torch, fn, calls: int = 100) -> float:
+    """The host's wall time a call of ``fn`` over back-to-back calls that
+    do not wait for the card (perf_counter): the wrapper's own cost where
+    the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def _blocks(grid) -> int:
+    return grid[0] * grid[1] * grid[2] if grid else 0
 
 
 def nbytes(*ts) -> int:
@@ -459,7 +537,12 @@ def check_sra_block(torch, dev) -> dict:
         b, by = bound_ms(nbytes(*args) + nbytes(got), ops, mma,
                          BF16_MMA_PER_S if dt == torch.bfloat16
                          else F32_OPS_PER_S)
+        launches = launch_profile(
+            torch, lambda: pvt_attn.sra_block(*args, nh, sr),
+            ("kv_patch", "kv_finish", "attention") if sr > 1
+            else ("kv_finish", "attention"))
         rows.append({"shape": list(x.shape), "heads": nh, "sr": sr,
+                     "launches_by_kernel": launches,
                      "tkv": tkv, "dtype": name,
                      "main_path": dt == torch.bfloat16,
                      "calls_per_forward": depth, "max_abs_err": err,
@@ -474,10 +557,23 @@ def check_sra_block(torch, dev) -> dict:
                          _sra_chain(torch, args, nh, sr))})
     out = _summary("sra_block", "pranet2_tpu_torch/csrc/pvt_kv.cu",
                    "pranet2_tpu/ops/pvt_attn.py:221", rows)
-    # the K/V launch, then row 6's attention kernel with its residual
+    # the K/V launches, then row 6's attention kernel with its residual
     # rounded once
     out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/pvt_attn.cu"]
+    out["launch_ms"] = _launch_ms(rows)
     return out
+
+
+def _launch_ms(rows) -> dict:
+    """Device ms a forward of each labelled launch over the main-path
+    rows (each row's calls a forward)."""
+    total = {}
+    for r in rows:
+        if r["main_path"]:
+            for label, v in r["launches_by_kernel"].items():
+                total[label] = (total.get(label, 0.0)
+                                + v["ms"] * r["calls_per_forward"])
+    return total
 
 
 def check_pvt_block(torch, dev) -> dict:
@@ -486,7 +582,8 @@ def check_pvt_block(torch, dev) -> dict:
     forward's worth (3 + 4 + 6 + 3 calls)."""
     import torch.nn.functional as F
 
-    from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
+    from pranet2_tpu_torch.ops.pvt_block import (mlp_tile, pvt_block,
+                                                 pvt_block_plain)
 
     g = torch.Generator(device=dev).manual_seed(7)
     cases = [(si, torch.bfloat16) for si in range(4)]
@@ -519,6 +616,23 @@ def check_pvt_block(torch, dev) -> dict:
                          else F32_OPS_PER_S)
         attn = _sra_chain(torch, args, nh, sr)
         ln2 = (mlp[0].to(dt), mlp[1].to(dt))
+        filled = ("kv_patch", "kv_finish", "mlp") if sr > 1 else (
+            "kv_finish", "mlp")
+        launches = launch_profile(
+            torch, lambda: pvt_block(*args, *mlp, nh, sr),
+            (*filled, "attention"))
+        grids = {k: v["grids"] for k, v in launches.items()}
+        tile = mlp_tile(*x.shape, c, dt)
+        print(f"pvt_block stage {si + 1} {name}: MLP rows, chunk, splits "
+              f"{tile}, grids {grids}, device ms "
+              f"{ {k: v['ms'] for k, v in launches.items()} }")
+        # the K/V and MLP launches must give every SM a block at the
+        # serving shapes, in every traced call
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if dt == torch.bfloat16 and any(_blocks(gr) < sms for k in filled
+                                        for gr in grids[k]):
+            raise AssertionError(f"pvt_block stage {si + 1}: a K/V or MLP "
+                                 f"launch below {sms} blocks: {grids}")
 
         def chain():
             h = attn()
@@ -530,6 +644,8 @@ def check_pvt_block(torch, dev) -> dict:
 
         rows.append({"shape": list(x.shape), "heads": nh, "sr": sr,
                      "hidden": c, "dtype": name,
+                     "mlp_rows_chunk_splits": list(tile),
+                     "launches_by_kernel": launches,
                      "main_path": dt == torch.bfloat16,
                      "calls_per_forward": depth, "max_abs_err": err,
                      "excess": over,
@@ -539,15 +655,21 @@ def check_pvt_block(torch, dev) -> dict:
                          reps=3, rounds=3),
                      "bound_ms": b, "bound_by": by,
                      "library_chain_ms": time_ms(chain)})
-    return _summary("pvt_block", "pranet2_tpu_torch/csrc/pvt_block.cu",
-                    "pranet2_tpu/ops/pvt_block.py:105", rows)
+    out = _summary("pvt_block", "pranet2_tpu_torch/csrc/pvt_block.cu",
+                   "pranet2_tpu/ops/pvt_block.py:105", rows)
+    out["launch_ms"] = _launch_ms(rows)
+    return out
 
 
 def check_dwconv(torch, dev) -> dict:
     """``depthwise_conv3x3`` at PVTv2-b2's four hidden shapes, float32 and
     bf16, against ``depthwise_conv3x3_plain``; the library call is one
     grouped ``F.conv2d`` (TF32 off).  No model calls it, so the entry's
-    times are the four bf16 shapes' sum, one call each."""
+    times are the four bf16 shapes' sum, one call each.  ``ms`` and
+    ``library_ms`` are CUDA events around back-to-back calls (``time_ms``),
+    as every row is timed; at the small maps they time the host's cost of a
+    call, so each shape also carries its device time (``kernel_ms``) and
+    the host's wall time a call (``host_ms``)."""
     import torch.nn.functional as F
 
     from pranet2_tpu_torch.ops import dwconv
@@ -571,16 +693,20 @@ def check_dwconv(torch, dev) -> dict:
             b, by = bound_ms(nbytes(x, w, got), 18 * got.numel())
             xc = x.permute(0, 3, 1, 2)
             wc = w.permute(2, 0, 1)[:, None].contiguous()
+            kernel = lambda: dwconv.depthwise_conv3x3(x, w)
+            library = lambda: F.conv2d(xc, wc, padding=1, groups=c)
             rows.append({"shape": list(x.shape), "dtype": name,
                          "max_abs_err": err, "excess": over,
-                         "ms": time_ms(
-                             lambda: dwconv.depthwise_conv3x3(x, w)),
+                         "ms": time_ms(kernel),
+                         "device_ms": kernel_ms(torch, kernel),
+                         "host_ms": host_ms(torch, kernel),
                          "plain_ms": time_ms(
                              lambda: dwconv.depthwise_conv3x3_plain(x, w),
                              reps=3, rounds=3),
                          "bound_ms": b, "bound_by": by,
-                         "library_ms": time_ms(lambda: F.conv2d(
-                             xc, wc, padding=1, groups=c))})
+                         "library_ms": time_ms(library),
+                         "library_device_ms": kernel_ms(torch, library),
+                         "library_host_ms": host_ms(torch, library)})
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     return {"name": "depthwise_conv3x3", "route": "cuda",
             "source": "pranet2_tpu_torch/csrc/dwconv.cu",
@@ -588,7 +714,9 @@ def check_dwconv(torch, dev) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "excess": max(r["excess"] for r in rows),
             **{k: sum(r[k] for r in bf16)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+               for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                         "bound_ms", "library_ms", "library_device_ms",
+                         "library_host_ms")},
             "bound_by": "bytes", "shapes": rows}
 
 
@@ -869,7 +997,8 @@ def device_time(torch, fn, forwards: int = 5) -> dict:
     ported = sum(ms for k, ms in rows if any(
         n in k for n in ("maxpool3x3s2", "dsra_gate", "fc1_kernel",
                          "dw_gelu_kernel", "fc2_kernel", "sra_kernel",
-                         "kv_kernel", "dw3x3_kernel", "res2_conv_kernel",
+                         "patch_kernel", "finish_kernel", "mlp_kernel",
+                         "dw3x3_kernel", "res2_conv_kernel",
                          "res2_split_epilogue")))
     return {"busy_ms": sum(ms for _, ms in rows), "ported_kernels_ms": ported,
             "top": [{"name": k[:90], "ms": ms} for k, ms in rows[:10]]}

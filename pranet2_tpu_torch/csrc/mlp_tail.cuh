@@ -1,5 +1,5 @@
-// The tail of the PVTv2 MLP half, shared by csrc/pvt_mlp.cu and
-// csrc/pvt_block.cu: from the float32 hidden z = fc1(LN(x)) to the output,
+// The tail of the PVTv2 MLP half in csrc/pvt_mlp.cu (gelu_poly is also
+// mlp_fused.cuh's): from the float32 hidden z = fc1(LN(x)) to the output,
 //   dw_gelu_kernel: g = GELU_poly(dwconv3x3(z) + bias), cast to x's type;
 //   fc2_kernel:     out = x + fc2(g), with the `stats` or `final_ln`
 //                   epilogue where asked.

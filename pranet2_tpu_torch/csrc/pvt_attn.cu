@@ -22,12 +22,11 @@ template <typename T>
 int launch(int exact_residual, const void* x, const float* lng, const float* lnb, const void* wq,
            const void* bq, const void* kv, const void* wp, const void* bp, void* out, int n,
            int hw, int d, int nh, int tkv, float eps, float scale, cudaStream_t s) {
-  const sra::Fc1Args none{};
   return exact_residual
              ? sra::launch<T, sra::kExactResidual>(x, lng, lnb, wq, bq, kv, wp, bp, out, n, hw,
-                                                   d, nh, tkv, eps, scale, none, s)
+                                                   d, nh, tkv, eps, scale, s)
              : sra::launch<T, sra::kRoundedResidual>(x, lng, lnb, wq, bq, kv, wp, bp, out, n,
-                                                     hw, d, nh, tkv, eps, scale, none, s);
+                                                     hw, d, nh, tkv, eps, scale, s);
 }
 
 }  // namespace

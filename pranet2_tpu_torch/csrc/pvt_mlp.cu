@@ -25,10 +25,10 @@
 //      blocks of LN(x) W1^T (W1 fragments read through L2) for 512 hidden
 //      channels, plus the bias, written to a float32 hidden z (M x C) in
 //      device memory;
-//   2. dw_gelu_kernel (in mlp_tail.cuh, with fc2_kernel, shared with
-//      csrc/pvt_block.cu): a thread walks an image row for four channels with
-//      the 3x3 window in registers: taps, border zeros, bias, GELU, cast;
-//      written as g (M x C) in x's type;
+//   2. dw_gelu_kernel (in mlp_tail.cuh, with fc2_kernel): a thread walks
+//      an image row for four channels with the 3x3 window in registers:
+//      taps, border zeros, bias, GELU, cast; written as g (M x C) in x's
+//      type;
 //   3. fc2_kernel: 32 rows of g times W2^T on WMMA into shared memory,
 //      then one warp per row for the residual and the mode's epilogue,
 //      which needs the whole row of D channels.

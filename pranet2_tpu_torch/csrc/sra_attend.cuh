@@ -11,11 +11,8 @@
 // row sum after PV; the heads concatenated and cast; proj in f32 plus its
 // bias.  The epilogue (template argument) sets the residual's roundings:
 //   kRoundedResidual  x + round(out), rounded in x's type (_kernel, v1);
-//   kExactResidual    round(x + out) (_attend, the whole-half kernels);
-//   kFc1              round(x + out) as h, then, on the rows the block
-//                     already holds, the MLP's LN2 (eps given) cast to x's
-//                     type and fc1 in f32 plus its bias, written to the
-//                     float32 hidden z (_kernel_v3 up to its depthwise conv).
+//   kExactResidual    round(x + out) (_attend, the whole-half and
+//                     whole-block kernels).
 //
 // Design: one block of 4 warps per 32 query rows of one image (16 rows for
 // float32), everything between x and out in shared memory:
@@ -26,9 +23,7 @@
 //   kernel has it); P = exp(S - max) in x's type and the row sums;
 //   O_h = P V_h / sum -> into ys, which LN1 no longer needs; then
 //   out = x + (ys Wp^T + bp).  The scores' region doubles as the warps'
-//   staging for the epilogues, which run when it holds no scores.  kFc1
-//   keeps h in qs, LN2(h) in ys, and walks fc1's output columns in 32x32
-//   blocks, so h is never read back from device memory for the MLP.
+//   staging for the epilogues, which run when it holds no scores.
 // K and V are staged again by each block of an image (L2 hits: at most
 // 248 KB an image at stage 4).
 #pragma once
@@ -42,19 +37,7 @@ using tile::kThreads;
 using tile::kWarps;
 using tile::WarpBlock;
 
-enum Epilogue { kRoundedResidual = 0, kExactResidual = 1, kFc1 = 2 };
-
-// The MLP's first step, for the kFc1 epilogue: LN2 (g, b, eps), fc1's w1
-// (c x d) and b1 (c) in x's type, and the float32 hidden z (N*H*W x c).
-struct Fc1Args {
-  const float* g;
-  const float* b;
-  float eps;
-  const void* w1;
-  const void* b1;
-  float* z;
-  int c;
-};
+enum Epilogue { kRoundedResidual = 0, kExactResidual = 1 };
 
 // Query rows per block; K/V rows are padded to a multiple of 32.
 template <typename T>
@@ -84,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
                const float* __restrict__ lnb, const T* __restrict__ wq,
                const T* __restrict__ bq, const T* __restrict__ kv, const T* __restrict__ wp,
                const T* __restrict__ bp, T* __restrict__ out, int hw, int d, int nh, int tkv,
-               float eps, float scale, Fc1Args f) {
+               float eps, float scale) {
   constexpr int BM = kBlockRows<T>, S = kSpan<T>;
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte K/V load
   const int hd = d / nh, tkvp = padded_tkv(tkv);
@@ -175,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // the block's rows of out; kFc1 keeps them (h) in qs, zeros past hw
+  // the block's rows of out
   T* oi = out + (long long)img * hw * d;
   for (int t = warp; t < (BM / S) * (d / S); t += kWarps) {
     const int tr = t % (BM / S), tc = t / (BM / S);
@@ -185,33 +168,12 @@ __global__ void __launch_bounds__(kThreads)
     acc.store(st, S);
     tile::for_staged<T>(st, tr, tc, BM, [&](int r, int col, float v) {
       const int row = row0 + r;
-      T o = from_f32<T>(0.f);
       if (row < hw) {
         const long long idx = (long long)row * d + col;
         const float p = v + to_f32<T>(bp[col]);
-        o = from_f32<T>(to_f32<T>(xi[idx]) + (EPI == kRoundedResidual ? round_to<T>(p) : p));
-        oi[idx] = o;
+        oi[idx] = from_f32<T>(to_f32<T>(xi[idx]) + (EPI == kRoundedResidual ? round_to<T>(p) : p));
       }
-      if (EPI == kFc1) qs[r * d + col] = o;
     });
-  }
-  if constexpr (EPI == kFc1) {
-    __syncthreads();
-    tile::layer_norm_rows<T>(qs, 0, hw - row0, BM, d, f.g, f.b, f.eps, ys);
-    __syncthreads();
-    const T* w1 = static_cast<const T*>(f.w1);
-    const T* b1 = static_cast<const T*>(f.b1);
-    float* zi = f.z + ((long long)img * hw + row0) * f.c;
-    for (int t = warp; t < (BM / S) * (f.c / S); t += kWarps) {
-      const int tr = t % (BM / S), tc = t / (BM / S);
-      WarpBlock<T> acc;
-      acc.zero();
-      acc.mma_abt(ys + tr * S * d, d, w1 + (long long)tc * S * d, d, d);
-      acc.store(st, S);
-      tile::for_staged<T>(st, tr, tc, hw - row0, [&](int r, int col, float v) {
-        zi[(long long)r * f.c + col] = v + to_f32<T>(b1[col]);
-      });
-    }
   }
 }
 
@@ -220,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int EPI>
 int launch(const void* x, const float* lng, const float* lnb, const void* wq, const void* bq,
            const void* kv, const void* wp, const void* bp, void* out, int n, int hw, int d,
-           int nh, int tkv, float eps, float scale, const Fc1Args& f, cudaStream_t s) {
+           int nh, int tkv, float eps, float scale, cudaStream_t s) {
   constexpr int BM = kBlockRows<T>;
   const size_t smem = smem_bytes<T>(d, d / nh, padded_tkv(tkv));
   cudaError_t err = cudaFuncSetAttribute(sra_kernel<T, EPI>,
@@ -233,7 +195,7 @@ int launch(const void* x, const float* lng, const float* lnb, const void* wq, co
   sra_kernel<T, EPI><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(x), lng, lnb, static_cast<const T*>(wq), static_cast<const T*>(bq),
       static_cast<const T*>(kv), static_cast<const T*>(wp), static_cast<const T*>(bp),
-      static_cast<T*>(out), hw, d, nh, tkv, eps, scale, f);
+      static_cast<T*>(out), hw, d, nh, tkv, eps, scale);
   return (int)cudaGetLastError();
 }
 

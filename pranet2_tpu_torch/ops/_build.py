@@ -101,6 +101,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: kernel launch failed, cudaError_t {err}")
 
 
+# PyTorch's raw-handle query, a fraction of the host cost of
+# torch.cuda.current_stream (no Stream object); absent from CPU builds.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream

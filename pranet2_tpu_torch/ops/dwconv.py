@@ -17,6 +17,7 @@ Forward only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,7 @@ def depthwise_conv3x3_plain(x, w):
     return acc.to(x.dtype)
 
 
+@functools.cache
 def _kernel():
     f = _build.library("dwconv").depthwise_conv3x3
     f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4

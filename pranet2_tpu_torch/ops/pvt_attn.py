@@ -8,8 +8,9 @@ Port of two TPU kernels of ``pranet2_tpu/ops/pvt_attn.py``:
   ``csrc/pvt_attn.cu``.
 * ``sra_block``, of ``_kernel_v2`` (launcher ``fused_sra_block``, the JAX
   package's ``PVT_ATTN_IMPL=v2``): the whole half, the K/V path included.
-  Kernels ``csrc/pvt_kv.cu`` (LN1 of the patch tokens, the sr x sr patch
-  product, the kv LN and the kv product) and ``csrc/pvt_attn.cu``.
+  Kernels ``csrc/pvt_kv.cu`` (LN1 of the patch tokens and the sr x sr
+  patch product split over blocks, then the kv LN and the kv product) and
+  ``csrc/pvt_attn.cu``.
 
 On a CUDA tensor the wrappers launch the kernels, on a CPU tensor they run
 the plain versions.  Both follow the TPU kernels' arithmetic:
@@ -42,6 +43,7 @@ Forward only: the gradient comes with binary training.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -167,6 +169,7 @@ def check_aligned(what: str, **tensors):
         raise ValueError(f"{what}: {bad} must be 32-byte aligned")
 
 
+@functools.cache
 def _attention_kernel():
     f = _build.library("pvt_attn").pvt_sra_attention
     f.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
@@ -176,11 +179,12 @@ def _attention_kernel():
     return f
 
 
+@functools.cache
 def _kv_kernel():
     f = _build.library("pvt_kv").pvt_sra_kv
     f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 4 + [ctypes.c_float]
-                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
@@ -261,19 +265,31 @@ def check_sra_block_args(what, x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w,
     check_aligned(what, wq=wq, wp=wp, wkv=wkv)
 
 
+def kv_scratch(x, sr: int):
+    """The K/V kernels' float32 scratch for the patch product's partial
+    sums, one per patch row, (sr, N * Tkv, D); None at sr = 1."""
+    n, h, w, d = x.shape
+    if sr == 1:
+        return None
+    return torch.empty((sr, n * (h // sr) * (w // sr), d),
+                       dtype=torch.float32, device=x.device)
+
+
 def _launch_kv(x, norm_w, norm_b, sr_wt, sr_b, kvn_w, kvn_b, wkv, bkv, sr,
               eps, what):
-    """The K/V path kernel: (N, Tkv, 2D) in x's type.  ``sr_wt`` is
+    """The K/V path kernels: (N, Tkv, 2D) in x's type.  ``sr_wt`` is
     ``sr_weight(sr_w)`` made contiguous (None at sr = 1)."""
     n, h, w, d = x.shape
     kv = torch.empty((n, (h // sr) * (w // sr), 2 * d), dtype=x.dtype,
                      device=x.device)
+    part = kv_scratch(x, sr)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         err = _kv_kernel()(
             _build.DTYPE_CODES[x.dtype], *map(ptr, (x, norm_w, norm_b)), eps,
             *map(ptr, (sr_wt, sr_b, kvn_w, kvn_b)), KV_EPS,
-            *map(ptr, (wkv, bkv, kv)), n, h, w, d, sr, _build.stream_ptr(x))
+            *map(ptr, (wkv, bkv, part, kv)), n, h, w, d, sr,
+            _build.stream_ptr(x))
     _build.check(err, what)
     return kv
 
@@ -284,8 +300,9 @@ def sra_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
     the K/V path included (``sr_w``, ``sr_b``, ``kvn_w``, ``kvn_b`` may be
     None at sr = 1).
 
-    CPU tensors: the plain version.  CUDA tensors: two launches, the K/V
-    path (``csrc/pvt_kv.cu``) and the attention (``csrc/pvt_attn.cu``); the
+    CPU tensors: the plain version.  CUDA tensors: the K/V path
+    (``csrc/pvt_kv.cu``, two launches where sr > 1) and the attention
+    (``csrc/pvt_attn.cu``); the
     same types as ``sra_attention``, any H and W of at least sr (the
     convolution's floor), and a RuntimeError where a launch is refused.
     ``sra_block.launches`` counts calls that launched the kernels.

@@ -6,7 +6,8 @@ Port of ``pranet2_tpu/ops/pvt_block.py::_kernel_v3`` (launcher
     h   = x + proj(attention(LN1(x), kv(LN_kv(sr(LN1(x))))))
     out = h + fc2(GELU(dwconv3x3(fc1(LN2(h)))))
 
-``pvt_block`` launches the hand-written kernels (``csrc/pvt_block.cu``) on a
+``pvt_block`` launches the hand-written kernels (``csrc/pvt_block.cu``: the
+K/V path, the attention, and the MLP with its hidden kept on chip) on a
 CUDA tensor and runs the plain version on a CPU tensor.  Both follow the TPU
 kernel's arithmetic: ``_kernel_v2``'s attention half with its residual
 rounded once (``ops.pvt_attn.sra_block_plain``), h rounded to x's type, then
@@ -21,13 +22,14 @@ layout, as ``sra_block`` and ``mlp_block`` take them.  Forward only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from pranet2_tpu_torch.ops import _build
 from pranet2_tpu_torch.ops.pvt_attn import (KV_EPS, check_aligned,
-                                            check_args, sr_weight,
-                                            check_sra_block_args,
+                                            check_args, check_sra_block_args,
+                                            kv_scratch, sr_weight,
                                             sra_block_plain)
 from pranet2_tpu_torch.ops.pvt_mlp import mlp_block_plain
 
@@ -43,13 +45,36 @@ def pvt_block_plain(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv,
                            eps2)
 
 
+@functools.cache
 def _kernel():
     f = _build.library("pvt_block").pvt_block
     p, fl = ctypes.c_void_p, ctypes.c_float
     f.argtypes = ([ctypes.c_int, p, p, p, fl, p, p, p, p, p, p, fl, p, p, p,
-                   p, fl, p, p, fl] + [p] * 11 + [ctypes.c_int] * 7 + [p])
+                   p, fl, p, p, fl] + [p] * 10 + [ctypes.c_int] * 7 + [p] * 3)
     f.restype = ctypes.c_int
     return f
+
+
+@functools.cache
+def _tile_query():
+    f = _build.library("pvt_block").pvt_block_mlp_tile
+    f.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    f.restype = ctypes.c_int
+    return f
+
+
+def mlp_tile(n: int, h: int, w: int, d: int, c: int,
+             dtype) -> tuple[int, int, int]:
+    """The MLP launch's tile on the current CUDA device, as
+    ``csrc/mlp_fused.cuh::mlpf::pick`` chooses it: image rows and hidden
+    channels a step of a block takes, and the blocks that share a row
+    tile's hidden channels.  Raises where no tile fits a block."""
+    tile = (ctypes.c_int * 3)()
+    err = _tile_query()(_build.DTYPE_CODES[dtype], n, h, w, d, c, tile)
+    if err:
+        raise ValueError(f"pvt_block: no MLP tile of W {w}, D {d} and C {c} "
+                         "fits a block")
+    return tile[0], tile[1], tile[2]
 
 
 def pvt_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
@@ -61,10 +86,10 @@ def pvt_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
     ``dw_w`` (C, 1, 3, 3) and fc2 ``w2`` (D, C) with their biases.
 
     CPU tensors: the plain version.  CUDA tensors: the kernels of
-    ``csrc/pvt_block.cu`` (four launches, the attention's crossing into the
-    MLP), in the types ``sra_block`` and ``mlp_block`` take, C a multiple
-    of 32; they raise on anything else.  ``pvt_block.launches`` counts
-    calls that launched the kernels.
+    ``csrc/pvt_block.cu`` (the K/V path, the attention, the MLP; no
+    (N*H*W x C) hidden is written), in the types ``sra_block`` and
+    ``mlp_block`` take, C a multiple of 32; they raise on anything else.
+    ``pvt_block.launches`` counts calls that launched the kernels.
     """
     attn = (x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
             wp, bp)
@@ -81,32 +106,39 @@ def pvt_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
                {"w1": (w1, (c, d)), "b1": (b1, (c,)),
                 "dw_w": (dw_w, (c, 1, 3, 3)), "dw_b": (dw_b, (c,)),
                 "w2": (w2, (d, c)), "b2": (b2, (d,))})
-    m = n * h * w
-    if c % 32 or m >= 2 ** 31:
+    if c % 32 or n * h >= 2 ** 31:
         raise ValueError(f"pvt_block: C ({c}) must be a multiple of 32 and "
-                         "N*H*W below 2^31")
-    check_aligned("pvt_block", w1=w1, w2=w2)
-    if m == 0:
+                         "N*H below 2^31")
+    check_aligned("pvt_block", w1=w1, w2=w2, b1=b1, dw_w=dw_w, dw_b=dw_b)
+    if x.numel() == 0:
         return torch.empty_like(x)
     sr_wt = sr_weight(sr_w).contiguous() if sr > 1 else None
-    # scratch: K/V, the attention half's output h, the float32 hidden after
-    # fc1, and the GELU output in x's type with its rows padded to fc2's
-    # 32-row blocks
+    # scratch: the patch product's partial sums, K/V, and the attention
+    # half's output h (the MLP's input and residual)
+    part = kv_scratch(x, sr)
     kv = torch.empty((n, (h // sr) * (w // sr), 2 * d), dtype=x.dtype,
                      device=x.device)
     hbuf = torch.empty_like(x)
-    z = torch.empty((m, c), dtype=torch.float32, device=x.device)
-    g = torch.empty((-(-m // 32) * 32, c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
+        # the MLP's partial sums and its tiles' counters where a row tile's
+        # hidden channels are split
+        rows, _, splits = mlp_tile(n, h, w, d, c, x.dtype)
+        mpart = mcount = None
+        if splits > 1:
+            mpart = torch.empty((splits, n * h * w, d), dtype=torch.float32,
+                                device=x.device)
+            mcount = torch.zeros(n * -(-h // rows), dtype=torch.int32,
+                                 device=x.device)
         err = _kernel()(
             _build.DTYPE_CODES[x.dtype], *map(ptr, (x, norm_w, norm_b)), eps,
             *map(ptr, (wq, bq, sr_wt, sr_b, kvn_w, kvn_b)), KV_EPS,
             *map(ptr, (wkv, bkv, wp, bp)), 1.0 / (d // num_heads) ** 0.5,
             *map(ptr, (norm2_w, norm2_b)), eps2,
-            *map(ptr, (w1, b1, dw_w, dw_b, w2, b2, kv, hbuf, z, g, out)),
-            n, h, w, d, num_heads, c, sr, _build.stream_ptr(x))
+            *map(ptr, (w1, b1, dw_w, dw_b, w2, b2, part, kv, hbuf, out)),
+            n, h, w, d, num_heads, c, sr, *map(ptr, (mpart, mcount)),
+            _build.stream_ptr(x))
     _build.check(err, "pvt_block")
     pvt_block.launches += 1
     return out

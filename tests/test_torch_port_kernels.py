@@ -15,7 +15,8 @@ import torch
 from pranet2_tpu_torch import get_model, ops
 from pranet2_tpu_torch.ops import (dsra, dwconv, pvt_attn, pvt_mlp,
                                    res2_block, res2_tail, stem)
-from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
+from pranet2_tpu_torch.ops.pvt_block import (mlp_tile, pvt_block,
+                                             pvt_block_plain)
 from pranet2_tpu_torch.testing import excess, random_bottle2neck
 import torch_pvt_faults
 import torch_res2_faults
@@ -451,8 +452,11 @@ def test_sra_block_kernel_matches_plain(cuda, n, h, w, d, nh, sr, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,d,nh,sr,c", [
-    (2, 88, 88, 64, 1, 8, 512),    # stages 1 and 4 of PVTv2-b2 at 352x352
+    (2, 88, 88, 64, 1, 8, 512),    # the four PVTv2-b2 stages at 352x352,
+    (2, 44, 44, 128, 2, 4, 1024),  # each its own MLP tile
+    (2, 22, 22, 320, 5, 2, 1280),
     (2, 11, 11, 512, 8, 1, 2048),
+    (2, 7, 13, 64, 1, 2, 256),     # W < 16, H not a multiple of the tile
     (1, 13, 10, 128, 2, 4, 256),   # the floor, 130 rows
     (3, 5, 7, 64, 2, 2, 128),      # 35 rows, a ragged last tile everywhere
 ])
@@ -470,10 +474,43 @@ def test_pvt_block_kernel_matches_plain(cuda, n, h, w, d, nh, sr, c, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("side,d,ratio", [(88, 64, 8), (44, 128, 8),
+                                          (22, 320, 4), (11, 512, 4)])
+def test_block_kernel_tiles_fill_the_card(cuda, side, d, ratio, dtype):
+    """PVTv2-b2's stages at batch 16: the MLP launch's tile, as its launch
+    picks it, gives every SM a block and splits the hidden channels evenly;
+    a smaller batch splits them further, up to 4 ways."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    c = d * ratio
+    rows, chunk, splits = mlp_tile(16, side, side, d, c, dtype)
+    assert 16 * -(-side // rows) * splits >= sms
+    assert c % (chunk * splits) == 0
+    assert mlp_tile(2, side, side, d, c, dtype)[2] >= splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,d,nh,sr,c", [(22, 320, 5, 2, 1280),
+                                            (11, 512, 8, 1, 2048)])
+def test_pvt_block_split_sum_repeats(cuda, side, d, nh, sr, c):
+    """Stages 3 and 4 at batch 16, bf16, where blocks split a row tile's
+    hidden channels and the last to finish adds their partial sums: fifty
+    calls give the first call's output bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(side + c)
+    args = (*_sra_block_args(g, 16, side, side, d, nh, sr, torch.bfloat16),
+            *_mlp_args(g, 1, 1, 1, d, c, torch.bfloat16)[1:9])
+    assert mlp_tile(16, side, side, d, c, torch.bfloat16)[2] > 1
+    first = ops.pvt_block(*args, nh, sr)
+    for _ in range(50):
+        assert torch.equal(ops.pvt_block(*args, nh, sr), first)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (2, 88, 88, 512),    # PVTv2-b2's stage-1 and stage-4 hidden maps
     (2, 11, 11, 2048),
+    (2, 45, 23, 512),    # H and W not multiples of the tile
     (2, 6, 9, 20),       # C = 20: 16-byte loads in float32, not in bf16
     (1, 7, 5, 3),        # C = 3: one channel a thread
     (3, 1, 1, 8),        # one pixel: every tap but the centre a border
@@ -539,7 +576,7 @@ def test_pvt_opt_checks_reject_planted_faults(cuda, fault):
         return
     args = _sra_block_args(g, 2, 44, 44, 128, 2, 4, torch.bfloat16)
     tol = PVT_TOL[torch.bfloat16]
-    if fault == "mlp_residual_from_x":
+    if fault in torch_pvt_faults.BLOCK_FAULTS:
         mlp = _mlp_args(g, 1, 1, 1, 128, 1024, torch.bfloat16)[1:9]
         got = ops.pvt_block(*args, *mlp, 2, 4)
         _assert_held(got, pvt_block_plain(*args, *mlp, 2, 4), tol, args[0])

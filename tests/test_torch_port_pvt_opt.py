@@ -189,7 +189,7 @@ def _fault_case(rng, fault):
         return (dwconv.depthwise_conv3x3(tx, tw), want,
                 torch_pvt_faults.depthwise_conv3x3(fault, tx, tw), None)
     jsra, tsra, jmlp, tmlp = _block_case(rng, "bf16", 4, 2)
-    if fault == "mlp_residual_from_x":
+    if fault in torch_pvt_faults.BLOCK_FAULTS:
         want = jblock.fused_pvt_block(*jsra, *jmlp, 4, 2, 1e-6, 1e-6)
         return (pvt_block(*tsra, *tmlp, 2, 4),
                 want, torch_pvt_faults.pvt_block(fault, *tsra, *tmlp,

@@ -5,19 +5,31 @@ check rejects them.  Imports no JAX, so the card tests use it too.
 * ``sr_window_transposed``: the sr x sr patch read (column, row) instead of
   (row, column) (``sra_block``);
 * ``kv_ln_dropped``: the K/V path without its LayerNorm (``sra_block``);
+* ``kv_patch_row_dropped``: the patch product without its last patch
+  row, one split-K part of the K/V kernel (``sra_block``);
 * ``mlp_residual_from_x``: the MLP's residual taken from x instead of the
   attention half's output h (``pvt_block``);
+* ``mlp_tile_halo_dropped``: the depthwise 3x3 of the MLP seeing zeros
+  across every edge of the MLP launch's R-row tiles (``pvt_block``; R as
+  ``ops.pvt_block.mlp_tile`` reads it from the launch on a CUDA device,
+  else 4, the most rows a tile takes);
 * ``dw_taps_transposed``: the depthwise taps read w[dj, di]
   (``depthwise_conv3x3``).
 """
 
+import torch
+import torch.nn.functional as F
+
 from pranet2_tpu_torch.ops.dwconv import depthwise_conv3x3_plain
 from pranet2_tpu_torch.ops.pvt_attn import (KV_EPS, attend_plain, ln1_plain,
                                             sr_weight, sra_block_plain)
-from pranet2_tpu_torch.ops.pvt_mlp import layer_norm_f32, mlp_block_plain
+from pranet2_tpu_torch.ops.pvt_block import mlp_tile
+from pranet2_tpu_torch.ops.pvt_mlp import (gelu_poly, layer_norm_f32,
+                                           mlp_block_plain)
 
-SRA_FAULTS = ("sr_window_transposed", "kv_ln_dropped")
-FAULTS = (*SRA_FAULTS, "mlp_residual_from_x", "dw_taps_transposed")
+SRA_FAULTS = ("sr_window_transposed", "kv_ln_dropped", "kv_patch_row_dropped")
+BLOCK_FAULTS = ("mlp_residual_from_x", "mlp_tile_halo_dropped")
+FAULTS = (*SRA_FAULTS, *BLOCK_FAULTS, "dw_taps_transposed")
 
 
 def sra_block(fault, x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b,
@@ -31,7 +43,11 @@ def sra_block(fault, x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b,
     p = yb[:, :hs * sr, :ws * sr].reshape(n, hs, sr, ws, sr, d)
     order = ((0, 1, 3, 4, 2, 5) if fault == "sr_window_transposed"
              else (0, 1, 3, 2, 4, 5))
-    p = p.permute(*order).reshape(n, hs * ws, sr * sr * d)
+    p = p.permute(*order)
+    if fault == "kv_patch_row_dropped":
+        p = p.clone()
+        p[:, :, :, sr - 1] = 0
+    p = p.reshape(n, hs * ws, sr * sr * d)
     s = p.float() @ sr_weight(sr_w).float().t() + sr_b.float()
     kvi = (s if fault == "kv_ln_dropped"
            else layer_norm_f32(s, kvn_w, kvn_b, KV_EPS)).to(dt)
@@ -39,11 +55,39 @@ def sra_block(fault, x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b,
     return attend_plain(x, yb, wq, bq, kv, wp, bp, num_heads, True)
 
 
+def mlp_tile_halo_dropped(h, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
+                          eps, rows):
+    """``mlp_block_plain`` whose depthwise 3x3 sees zeros above the first
+    and below the last row of every ``rows``-row tile."""
+    dt = h.dtype
+    n, hh, w, d = h.shape
+    yb = layer_norm_f32(h.float(), norm_w, norm_b, eps).to(dt)
+    z = yb.float() @ w1.float().t() + b1.float()
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1))
+    i = torch.arange(hh, device=h.device)
+    # the tap row di - 1 lies in another tile
+    cut = {0: i % rows == 0, 2: i % rows == rows - 1}
+    taps = dw_w.float()[:, 0]
+    acc = torch.zeros_like(z)
+    for dj in range(3):
+        for di in range(3):
+            t = zp[:, di:di + hh, dj:dj + w]
+            if di in cut:
+                t = t.masked_fill(cut[di].view(1, hh, 1, 1), 0.0)
+            acc = acc + t * taps[:, di, dj]
+    g = gelu_poly(acc + dw_b.float()).to(dt)
+    return h + (g.float() @ w2.float().t() + b2.float()).to(dt)
+
+
 def pvt_block(fault, x, *args, num_heads, sr, eps=1e-6, eps2=1e-6):
-    """``pvt_block_plain`` (``args``: its tensors after x) with the MLP's
-    residual taken from x."""
-    assert fault == "mlp_residual_from_x"
+    """``pvt_block_plain`` (``args``: its tensors after x) with ``fault``
+    (one of ``BLOCK_FAULTS``) planted in its MLP half."""
     h = sra_block_plain(x, *args[:12], num_heads, sr, eps)
+    if fault == "mlp_tile_halo_dropped":
+        rows = (mlp_tile(*x.shape, args[14].shape[0], x.dtype)[0]
+                if x.is_cuda else 4)
+        return mlp_tile_halo_dropped(h, *args[12:], eps2, rows)
+    assert fault == "mlp_residual_from_x"
     o = mlp_block_plain(h, *args[12:], eps2)
     return (x.float() + (o.float() - h.float())).to(x.dtype)
 
