@@ -120,7 +120,24 @@ def bound_ms(nbytes: int, ops: int, mma_ops: int = 0,
 
 # the hand kernels' launches by name in a device trace
 LAUNCH_LABELS = {"patch_kernel": "kv_patch", "finish_kernel": "kv_finish",
-                 "sra_kernel": "attention", "mlp_kernel": "mlp"}
+                 "sra_kernel": "attention", "mlp_kernel": "mlp",
+                 "prep_kernel": "prep", "conv1x1_kernel": "conv1x1",
+                 "conv3x3_kernel": "conv3x3",
+                 "split_reduce_kernel": "split_reduce",
+                 "res2_conv_kernel": "conv_f32",
+                 "res2_split_epilogue": "split_epilogue_f32"}
+
+
+# The tracer drops the device events that it places outside a session's
+# window: a short session (five calls of a 0.2-0.4 ms launch) can come back
+# with some or none of them.  Each session therefore opens TRACE_PAD_S
+# before the first call and closes TRACE_PAD_S after the last one has
+# finished, and one that still comes back short is traced again, up to
+# TRACE_TRIES sessions in all.
+TRACE_TRIES = 6
+TRACE_PAD_S = 0.02
+# sessions traced, and those that came back short (traced again)
+TRACES = {"sessions": 0, "short": 0}
 
 
 def _trace(torch, fn, calls: int) -> list:
@@ -131,48 +148,61 @@ def _trace(torch, fn, calls: int) -> list:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+    TRACES["sessions"] += 1
     return [e for e in events if e.get("cat") == "kernel"]
 
 
-def launch_profile(torch, fn, expect, calls: int = 5) -> dict:
-    """Device time per call and grids of each labelled kernel ``fn``
-    launches (``{label: {"ms", "grids"}}``, every distinct grid of the
-    label's events); traced again, up to three times, while a label of
-    ``expect`` is missing or an event of one carries no grid (the tracer
-    now and then drops a run's events)."""
-    for _ in range(3):
-        out = {}
+def _profile(torch, fn, expect, calls: int) -> tuple[dict, set]:
+    """``launch_profile`` and the names of every kernel in its trace."""
+    for _ in range(TRACE_TRIES):
+        out, names = {}, set()
         for e in _trace(torch, fn, calls):
+            names.add(e.get("name", "")[:60])
             for key, label in LAUNCH_LABELS.items():
                 if key in e.get("name", ""):
-                    row = out.setdefault(label, {"ms": 0.0, "grids": []})
+                    row = out.setdefault(label, {"ms": 0.0, "grids": [],
+                                                 "per_call": 0.0})
                     row["ms"] += e.get("dur", 0.0) / 1e3 / calls
+                    row["per_call"] += 1 / calls
                     grid = e.get("args", {}).get("grid")
                     if grid not in row["grids"]:
                         row["grids"].append(grid)
         if set(expect) <= set(out) and all(None not in out[k]["grids"]
                                            for k in expect):
-            return out
-    raise AssertionError(f"no device trace, or no grid, of {sorted(expect)}: "
-                         f"{out}")
+            return out, names
+        TRACES["short"] += 1
+    raise AssertionError(f"no device trace, or no grid, of {sorted(expect)} "
+                         f"in {TRACE_TRIES} sessions: {out}")
+
+
+def launch_profile(torch, fn, expect, calls: int = 5) -> dict:
+    """Device time, launches per call and grids of each labelled kernel
+    ``fn`` launches (``{label: {"ms", "per_call", "grids"}}``, every
+    distinct grid of the label's events); traced again, up to
+    ``TRACE_TRIES`` sessions, while a label of ``expect`` is missing or an
+    event of one carries no grid."""
+    return _profile(torch, fn, expect, calls)[0]
 
 
 def kernel_ms(torch, fn, calls: int = 20) -> float:
     """Device time a call of every kernel ``fn`` launches (torch.profiler's
     trace): the GPU's own time, free of the host's cost of each call."""
-    for _ in range(3):
+    for _ in range(TRACE_TRIES):
         ms = sum(e.get("dur", 0.0) for e in _trace(torch, fn, calls))
         if ms > 0:
             return ms / 1e3 / calls
-    raise AssertionError("no kernel in three device traces")
+        TRACES["short"] += 1
+    raise AssertionError(f"no kernel in {TRACE_TRIES} device traces")
 
 
 def host_ms(torch, fn, calls: int = 100) -> float:
@@ -301,7 +331,9 @@ def _summary(name, source, replaces, rows):
     row times the calls a forward makes at its shape."""
     main = [r for r in rows if r["main_path"]]
     total = {k: sum(r[k] * r["calls_per_forward"] for r in main)
-             for k in ("ms", "plain_ms", "bound_ms", "library_chain_ms")}
+             for k in ("ms", "plain_ms", "bound_ms", "library_chain_ms",
+                       "device_ms", "library_chain_device_ms")
+             if all(k in r for r in main)}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -312,10 +344,15 @@ def _summary(name, source, replaces, rows):
 
 def check_pvt_mlp(torch, dev) -> dict:
     """``mlp_block`` at the four PVTv2-b2 stage shapes (bf16, stats and
-    final_ln modes) and one float32 case, against ``mlp_block_plain``.
+    final_ln modes, plain mode at stages 1 and 3) and one float32 case,
+    against ``mlp_block_plain``.  Every bf16 call must be one launch of the
+    on-chip kernel (``launch_profile``), whose tile and grid each row
+    reports; kernel and library chain are also timed by device time.
 
-    The main-path times are one forward's worth: each stage's stats-mode
-    call times its non-last blocks plus its final_ln call (12 + 4)."""
+    The main-path times are one forward's worth of the default PVT path:
+    each stage's stats-mode call times its non-last blocks plus its
+    final_ln call (12 + 4); the plain rows are the ``attn_impl="v2"``
+    path's."""
     import torch.nn.functional as F
 
     from pranet2_tpu_torch.ops import pvt_mlp
@@ -323,7 +360,8 @@ def check_pvt_mlp(torch, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(2)
     cases = [(si, dt, mode) for si in range(4) for dt in (torch.bfloat16,)
              for mode in ("stats", "final_ln")]
-    cases.append((1, torch.float32, "stats"))
+    cases += [(0, torch.bfloat16, "plain"), (2, torch.bfloat16, "plain"),
+              (1, torch.float32, "stats")]
     rows = []
     for si, dt, mode in cases:
         side, d, _, ratio, _, depth = PVT_STAGES[si]
@@ -336,8 +374,8 @@ def check_pvt_mlp(torch, dev) -> dict:
                         device=dev).to(dt)
         args = (x, p["w_ln"], p["b_ln"], p["w1"], p["b1"], p["dw"], p["dwb"],
                 p["w2"], p["b2"], 1e-6)
-        kw = ({"stats_eps": 1e-6} if mode == "stats"
-              else {"final_ln": (p["wf_ln"], p["bf_ln"])})
+        kw = {"plain": {}, "stats": {"stats_eps": 1e-6},
+              "final_ln": {"final_ln": (p["wf_ln"], p["bf_ln"])}}[mode]
         got = pvt_mlp.mlp_block(*args, **kw)
         want = pvt_mlp.mlp_block_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -371,20 +409,54 @@ def check_pvt_mlp(torch, dev) -> dict:
             y = F.conv2d(y.permute(0, 3, 1, 2), dw, dwb, padding=1, groups=c)
             return x + F.linear(F.gelu(y.permute(0, 2, 3, 1)), w2, b2)
 
-        calls = depth - 1 if mode == "stats" else 1
+        calls = depth - 1 if mode != "final_ln" else 1
+        kernel = lambda: pvt_mlp.mlp_block(*args, **kw)
         row = {"shape": list(x.shape), "hidden": c, "dtype": name,
-               "mode": mode, "main_path": dt == torch.bfloat16,
+               "mode": mode,
+               "main_path": dt == torch.bfloat16 and mode != "plain",
                "calls_per_forward": calls, "max_abs_err": err,
-               "excess": over,
-               "ms": time_ms(lambda: pvt_mlp.mlp_block(*args, **kw)),
+               "excess": over, "ms": time_ms(kernel),
+               "device_ms": kernel_ms(torch, kernel),
                "plain_ms": time_ms(lambda: pvt_mlp.mlp_block_plain(*args,
                                                                    **kw),
                                    reps=3, rounds=3),
                "bound_ms": b, "bound_by": by,
-               "library_chain_ms": time_ms(chain)}
+               "library_chain_ms": time_ms(chain),
+               "library_chain_device_ms": kernel_ms(torch, chain)}
+        if dt == torch.bfloat16:
+            row["launches_by_kernel"] = _one_launch(
+                torch, kernel, "mlp", f"mlp_block {mode} stage {si + 1}")
+            row["mlp_rows_chunk_splits"] = list(pvt_mlp.mlp_tile(
+                *x.shape, c, dt))
+            print(f"mlp_block stage {si + 1} {mode}: rows, chunk, splits "
+                  f"{row['mlp_rows_chunk_splits']}, "
+                  f"{row['launches_by_kernel']}")
         rows.append(row)
-    return _summary("mlp_block", "pranet2_tpu_torch/csrc/pvt_mlp.cu",
-                    "pranet2_tpu/ops/pvt_mlp.py:112", rows)
+    out = _summary("mlp_block", "pranet2_tpu_torch/csrc/pvt_mlp.cu",
+                   "pranet2_tpu/ops/pvt_mlp.py:112", rows)
+    out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/mlp_fused.cuh"]
+    out["launch_ms"] = _launch_ms(rows)
+    return out
+
+
+def _one_launch(torch, fn, label, what, calls: int = 5) -> dict:
+    """``launch_profile`` of ``fn``, which must launch ``label``'s kernel
+    once a call and no other kernel."""
+    key = next(k for k, v in LAUNCH_LABELS.items() if v == label)
+    # a session that lost some of its events is traced again, up to
+    # TRACE_TRIES times, while the count is short
+    for _ in range(TRACE_TRIES):
+        prof, names = _profile(torch, fn, (label,), calls)
+        if any(key not in n for n in names):
+            raise AssertionError(f"{what}: launches {names}; expected "
+                                 f"{label} alone")
+        if abs(prof[label]["per_call"] - 1) < 1e-9:
+            break
+        TRACES["short"] += 1
+    else:
+        raise AssertionError(f"{what}: {prof[label]['per_call']} launches "
+                             f"of {label} a call; expected one")
+    return prof
 
 
 def check_sra_attention(torch, dev) -> dict:
@@ -582,8 +654,8 @@ def check_pvt_block(torch, dev) -> dict:
     forward's worth (3 + 4 + 6 + 3 calls)."""
     import torch.nn.functional as F
 
-    from pranet2_tpu_torch.ops.pvt_block import (mlp_tile, pvt_block,
-                                                 pvt_block_plain)
+    from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
+    from pranet2_tpu_torch.ops.pvt_mlp import mlp_tile
 
     g = torch.Generator(device=dev).manual_seed(7)
     cases = [(si, torch.bfloat16) for si in range(4)]
@@ -626,13 +698,17 @@ def check_pvt_block(torch, dev) -> dict:
         print(f"pvt_block stage {si + 1} {name}: MLP rows, chunk, splits "
               f"{tile}, grids {grids}, device ms "
               f"{ {k: v['ms'] for k, v in launches.items()} }")
-        # the K/V and MLP launches must give every SM a block at the
-        # serving shapes, in every traced call
+        # at the serving shapes, in every traced call, the K/V launches
+        # must give every SM a block and the MLP launch half of them (its
+        # pick splits no further: mlp_fused.cuh::pick)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        if dt == torch.bfloat16 and any(_blocks(gr) < sms for k in filled
-                                        for gr in grids[k]):
-            raise AssertionError(f"pvt_block stage {si + 1}: a K/V or MLP "
-                                 f"launch below {sms} blocks: {grids}")
+        least = {k: sms if k.startswith("kv") else -(-sms // 2)
+                 for k in filled}
+        if dt == torch.bfloat16 and any(_blocks(gr) < least[k]
+                                        for k in filled for gr in grids[k]):
+            raise AssertionError(f"pvt_block stage {si + 1}: a K/V launch "
+                                 f"below {sms} blocks or an MLP launch "
+                                 f"below half that: {grids}")
 
         def chain():
             h = attn()
@@ -771,18 +847,28 @@ def check_res2_tail(torch, dev) -> dict:
             y = F.conv2d(cc, w4) * s3[:, None, None] + t3[:, None, None]
             return torch.relu(y + short).to(dt)
 
-        rows.append({"shape": list(cc.shape), "cout": cout, "dtype": name,
-                     "main_path": dt == torch.bfloat16,
-                     "calls_per_forward": 1, "max_abs_err": err,
-                     "excess": over,
-                     "ms": time_ms(lambda: res2_tail.fused_tail(*args)),
-                     "plain_ms": time_ms(
-                         lambda: res2_tail.res2_tail_plain(*args), reps=3,
-                         rounds=3),
-                     "bound_ms": b, "bound_by": by,
-                     "library_chain_ms": time_ms(chain)})
-    return _summary("fused_tail", "pranet2_tpu_torch/csrc/res2_tail.cu",
-                    "pranet2_tpu/ops/res2_tail.py:37", rows)
+        kernel = lambda: res2_tail.fused_tail(*args)
+        row = {"shape": list(cc.shape), "cout": cout, "dtype": name,
+               "main_path": dt == torch.bfloat16,
+               "calls_per_forward": 1, "max_abs_err": err,
+               "excess": over, "ms": time_ms(kernel),
+               "device_ms": kernel_ms(torch, kernel),
+               "plain_ms": time_ms(
+                   lambda: res2_tail.res2_tail_plain(*args), reps=3,
+                   rounds=3),
+               "bound_ms": b, "bound_by": by,
+               "library_chain_ms": time_ms(chain),
+               "library_chain_device_ms": kernel_ms(torch, chain)}
+        if dt == torch.bfloat16:
+            row["launches_by_kernel"] = launch_profile(torch, kernel,
+                                                       ("conv1x1",))
+            print(f"fused_tail layer {li + 1}: {row['launches_by_kernel']}")
+        rows.append(row)
+    out = _summary("fused_tail", "pranet2_tpu_torch/csrc/res2_tail.cu",
+                   "pranet2_tpu/ops/res2_tail.py:37", rows)
+    out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/res2_gemm.cuh"]
+    out["launch_ms"] = _launch_ms(rows)
+    return out
 
 
 def check_bottle2neck(torch, dev) -> dict:
@@ -820,25 +906,40 @@ def check_bottle2neck(torch, dev) -> dict:
                                   + 4 * width * c),
                          BF16_MMA_PER_S if dt == torch.bfloat16
                          else F32_OPS_PER_S)
-        with torch.inference_mode():
-            lib_ms = time_ms(lambda: block(x))
-        rows.append({"shape": list(x.shape), "width": width, "dtype": name,
-                     "main_path": dt == torch.bfloat16,
-                     "calls_per_forward": calls, "max_abs_err": err,
-                     "excess": over,
-                     # u and cat written (7 width channels), u, the
-                     # sp_{i-1} and cat read (9 width channels)
-                     "spill_bytes": 16 * width * m * x.element_size(),
-                     "ms": time_ms(
-                         lambda: res2_block.fused_bottle2neck(x, *args)),
-                     "plain_ms": time_ms(
-                         lambda: res2_block.bottle2neck_plain(x, *args),
-                         reps=3, rounds=3),
-                     "bound_ms": b, "bound_by": by,
-                     "library_chain_ms": lib_ms})
+        def library():
+            with torch.inference_mode():
+                return block(x)
+
+        kernel = lambda: res2_block.fused_bottle2neck(x, *args)
+        row = {"shape": list(x.shape), "width": width, "dtype": name,
+               "main_path": dt == torch.bfloat16,
+               "calls_per_forward": calls, "max_abs_err": err,
+               "excess": over,
+               # u and cat written (7 width channels), u, the sp_{i-1}
+               # and cat read (9 width channels); bf16 pads each group
+               "spill_bytes": 16 * width * m * x.element_size(),
+               "ms": time_ms(kernel),
+               "device_ms": kernel_ms(torch, kernel),
+               "plain_ms": time_ms(
+                   lambda: res2_block.bottle2neck_plain(x, *args),
+                   reps=3, rounds=3),
+               "bound_ms": b, "bound_by": by,
+               "library_chain_ms": time_ms(library),
+               "library_chain_device_ms": kernel_ms(torch, library)}
+        if dt == torch.bfloat16:
+            row["conv3x3_rows_cols_splits"] = list(res2_block.conv3x3_tile(
+                BATCH, c, width, side, side))
+            row["launches_by_kernel"] = launch_profile(
+                torch, kernel, ("prep", "conv1x1", "conv3x3"))
+            print(f"fused_bottle2neck layer {li + 1}: 3x3 tile "
+                  f"{row['conv3x3_rows_cols_splits']}, "
+                  f"{row['launches_by_kernel']}")
+        rows.append(row)
     out = _summary("fused_bottle2neck",
                    "pranet2_tpu_torch/csrc/res2_block.cu",
                    "pranet2_tpu/ops/res2_block.py:125", rows)
+    out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/res2_gemm.cuh"]
+    out["launch_ms"] = _launch_ms(rows)
     out["spill_bytes"] = sum(r["spill_bytes"] * r["calls_per_forward"]
                              for r in rows if r["main_path"])
     return out
@@ -995,11 +1096,11 @@ def device_time(torch, fn, forwards: int = 5) -> dict:
     if not rows:
         return {"busy_ms": None, "ported_kernels_ms": None, "top": []}
     ported = sum(ms for k, ms in rows if any(
-        n in k for n in ("maxpool3x3s2", "dsra_gate", "fc1_kernel",
-                         "dw_gelu_kernel", "fc2_kernel", "sra_kernel",
+        n in k for n in ("maxpool3x3s2", "dsra_gate", "sra_kernel",
                          "patch_kernel", "finish_kernel", "mlp_kernel",
-                         "dw3x3_kernel", "res2_conv_kernel",
-                         "res2_split_epilogue")))
+                         "dw3x3_kernel", "prep_kernel", "conv1x1_kernel",
+                         "conv3x3_kernel", "split_reduce_kernel",
+                         "res2_conv_kernel", "res2_split_epilogue")))
     return {"busy_ms": sum(ms for _, ms in rows), "ported_kernels_ms": ported,
             "top": [{"name": k[:90], "ms": ms} for k, ms in rows[:10]]}
 
@@ -1101,6 +1202,8 @@ def main() -> int:
         by_path = {m["model"]: m["launches"][k["name"]] for m in models}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
+    print(f"device traces: {TRACES['sessions']} sessions, "
+          f"{TRACES['short']} short and traced again")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

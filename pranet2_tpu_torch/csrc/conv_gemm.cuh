@@ -1,23 +1,21 @@
-// The convolutions of a Res2Net Bottle2neck as matrix products over NCHW
-// maps, with the block's epilogue: shared by res2_tail.cu and res2_block.cu.
+// The float32 convolutions of a Res2Net Bottle2neck as matrix products over
+// NCHW maps, with the block's epilogue: shared by res2_tail.cu and
+// res2_block.cu, which no model serves in float32 (their bfloat16 products
+// run on res2_gemm.cuh's tensor-core engine).
 //
 // Per image a 1x1 convolution is out (M x HW) = W (M x K) . X (K x HW) with
 // K = Cin, and a 3x3 one (stride 1, zero padding 1) the same product over
 // K = 9 Cin with X the im2col of the input, built as the tile is loaded:
 // k = ci * 9 + di * 3 + dj, the flattening of an OIHW weight.  The input of a
-// 3x3 convolution can be the sum of two maps rounded to T (the Bottle2neck's
+// 3x3 convolution can be the sum of two maps (the Bottle2neck's
 // hierarchical add, u_i + sp_{i-1}).  Taps outside the image read zero.
 // The epilogue is the TPU kernels': z * s + t (a folded BatchNorm, float32),
-// plus a residual in float32 where one is given, ReLU, a cast to T.
+// plus a residual in float32 where one is given, ReLU.
 //
 // One block of 128 threads holds a BM x BN output tile of four warps of
-// kSpan x kSpan (kSpan 32 for bfloat16 on WMMA tensor-core products, 16 for
-// float32 on FMA loops), 2 x 2 warps or, for outputs of at most kSpan
-// channels, 1 x 4.  K runs in steps of 32 through shared memory,
-// zero-filled past the ragged edges of M, K and HW; latency is hidden by
-// the blocks resident on an SM, not by a pipeline within one (a
-// register-prefetch pipeline cost more in occupancy than it gained).  No
-// library GEMM is called.
+// 16 x 16 FMA tiles, 2 x 2 warps or, for outputs of at most 16 channels,
+// 1 x 4.  K runs in steps of 32 through shared memory, zero-filled past
+// the ragged edges of M, K and HW.  No library GEMM is called.
 #pragma once
 
 #include "tile.cuh"
@@ -25,9 +23,8 @@
 namespace res2 {
 
 constexpr int kBK = 32;
-// Row padding of the shared tiles: WMMA wants leading dimensions that are
-// multiples of 8 halves; the float32 FMA loops want rows on distinct banks.
-template <typename T> constexpr int kPad = sizeof(T) == 2 ? 8 : 1;
+// Row padding of the shared tiles: rows on distinct banks.
+constexpr int kPad = 1;
 
 template <typename T>
 struct ConvArgs {
@@ -86,73 +83,50 @@ __device__ __forceinline__ void store_out(const ConvArgs<T>& a, float z, long lo
   dst[p] = from_f32<T>(fmaxf(v, 0.f));
 }
 
-// The A and B tiles of one K step, loaded into shared memory.  VA: the
-// weight rows start on 16 bytes and K is a multiple of 8, so A is loaded 16
-// bytes (8 bfloat16 values) a thread at a time; VB: likewise for the rows
-// of a 1x1 convolution's input (HW a multiple of 8).  Otherwise one value
-// at a time.
-template <typename T, int KS, bool VA, bool VB, int BM, int BN, int LDA, int LDB>
+// The A and B tiles of one K step, loaded into shared memory one value at a
+// time.
+template <typename T, int KS, int BM, int BN, int LDA, int LDB>
 __device__ __forceinline__ void load_tiles(const ConvArgs<T>& a, const T* x, const T* add,
                                            int m0, int p0, int k0, int ktot, int hw, T* as,
                                            T* bs) {
   constexpr int BK = kBK;
   const int tid = threadIdx.x;
   const T zero = from_f32<T>(0.f);
-  if constexpr (VA) {
-    for (int e = tid; e < BM * BK / 8; e += tile::kThreads) {
-      const int mm = e / (BK / 8), k = k0 + e % (BK / 8) * 8, co = m0 + mm;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (co < a.m && k < ktot)
-        v = *reinterpret_cast<const uint4*>(a.weight + (long long)co * ktot + k);
-      *reinterpret_cast<uint4*>(as + mm * LDA + k - k0) = v;
-    }
-  } else {
-    for (int e = tid; e < BM * BK; e += tile::kThreads) {
-      const int mm = e / BK, kk = e % BK;
-      const int co = m0 + mm, k = k0 + kk;
-      as[mm * LDA + kk] = (co < a.m && k < ktot) ? a.weight[(long long)co * ktot + k] : zero;
-    }
+  for (int e = tid; e < BM * BK; e += tile::kThreads) {
+    const int mm = e / BK, kk = e % BK;
+    const int co = m0 + mm, k = k0 + kk;
+    as[mm * LDA + kk] = (co < a.m && k < ktot) ? a.weight[(long long)co * ktot + k] : zero;
   }
-  if constexpr (VB) {
-    for (int e = tid; e < BK * BN / 8; e += tile::kThreads) {
-      const int kk = e / (BN / 8), jj = e % (BN / 8) * 8, k = k0 + kk, p = p0 + jj;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < ktot && p < hw) v = *reinterpret_cast<const uint4*>(x + (long long)k * hw + p);
-      *reinterpret_cast<uint4*>(bs + kk * LDB + jj) = v;
-    }
-  } else {
-    // each thread keeps one pixel column of the B tile
-    const int j = tid % BN, p = p0 + j;
-    const bool live = p < hw;
-    const int py = live ? p / a.width : 0, px = live ? p - py * a.width : 0;
-    for (int kk = tid / BN; kk < BK; kk += tile::kThreads / BN) {
-      const int k = k0 + kk;
-      T v = zero;
-      if (live && k < ktot) {
-        if (KS == 1) {
-          v = x[(long long)k * hw + p];
-        } else {
-          const int ci = k / 9, tap = k - 9 * ci, di = tap / 3, dj = tap - 3 * di;
-          const int yy = py + di - 1, xx = px + dj - 1;
-          if (yy >= 0 && yy < a.height && xx >= 0 && xx < a.width) {
-            const long long off = (long long)ci * hw + yy * a.width + xx;
-            v = add == nullptr ? x[off]
-                               : from_f32<T>(to_f32<T>(x[off]) + to_f32<T>(add[off]));
-          }
+  // each thread keeps one pixel column of the B tile
+  const int j = tid % BN, p = p0 + j;
+  const bool live = p < hw;
+  const int py = live ? p / a.width : 0, px = live ? p - py * a.width : 0;
+  for (int kk = tid / BN; kk < BK; kk += tile::kThreads / BN) {
+    const int k = k0 + kk;
+    T v = zero;
+    if (live && k < ktot) {
+      if (KS == 1) {
+        v = x[(long long)k * hw + p];
+      } else {
+        const int ci = k / 9, tap = k - 9 * ci, di = tap / 3, dj = tap - 3 * di;
+        const int yy = py + di - 1, xx = px + dj - 1;
+        if (yy >= 0 && yy < a.height && xx >= 0 && xx < a.width) {
+          const long long off = (long long)ci * hw + yy * a.width + xx;
+          v = add == nullptr ? x[off] : from_f32<T>(to_f32<T>(x[off]) + to_f32<T>(add[off]));
         }
       }
-      bs[kk * LDB + j] = v;
     }
+    bs[kk * LDB + j] = v;
   }
 }
 
-template <typename T, int KS, bool RES, bool VA, bool VB, int WM>
+template <typename T, int KS, bool RES, int WM>
 __global__ void __launch_bounds__(tile::kThreads)
     res2_conv_kernel(const ConvArgs<T> a, int n_images, int splits) {
   constexpr int S = tile::kSpan<T>;
   constexpr int WN = tile::kWarps / WM;
   constexpr int BM = WM * S, BN = WN * S, BK = kBK;
-  constexpr int LDA = BK + kPad<T>, LDB = BN + kPad<T>, LDC = BN + 4;
+  constexpr int LDA = BK + kPad, LDB = BN + kPad, LDC = BN + 4;
   __shared__ __align__(128) T as[BM * LDA];
   __shared__ __align__(128) T bs[BK * LDB];
   __shared__ __align__(128) float cs[BM * LDC];
@@ -171,7 +145,7 @@ __global__ void __launch_bounds__(tile::kThreads)
   tile::WarpBlock<T> acc;
   acc.zero();
   for (int k0 = split * kper; k0 < kend; k0 += BK) {
-    load_tiles<T, KS, VA, VB, BM, BN, LDA, LDB>(a, x, add, m0, p0, k0, ktot, hw, as, bs);
+    load_tiles<T, KS, BM, BN, LDA, LDB>(a, x, add, m0, p0, k0, ktot, hw, as, bs);
     __syncthreads();
     acc.mma_ab(as + (warp / WN) * S * LDA, LDA, bs + (warp % WN) * S, LDB, BK);
     __syncthreads();
@@ -209,11 +183,11 @@ __global__ void res2_split_epilogue(const ConvArgs<T> a, int n_images, int split
   }
 }
 
-template <typename T, int KS, bool RES, bool VA, bool VB, int WM>
+template <typename T, int KS, bool RES, int WM>
 int launch_tiles(const ConvArgs<T>& a, int n, int splits, cudaStream_t stream) {
   constexpr int BM = WM * tile::kSpan<T>, BN = tile::kWarps / WM * tile::kSpan<T>;
   const dim3 grid((a.height * a.width + BN - 1) / BN, (a.m + BM - 1) / BM, n * splits);
-  res2_conv_kernel<T, KS, RES, VA, VB, WM><<<grid, tile::kThreads, 0, stream>>>(a, n, splits);
+  res2_conv_kernel<T, KS, RES, WM><<<grid, tile::kThreads, 0, stream>>>(a, n, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)n * a.m * a.height * a.width;
@@ -222,21 +196,13 @@ int launch_tiles(const ConvArgs<T>& a, int n, int splits, cudaStream_t stream) {
 }
 
 // Outputs of at most kSpan channels (the 26-wide 3x3 convolutions of layer
-// 1) take kSpan x 4 kSpan tiles, the rest 2 kSpan x 2 kSpan.  A bfloat16
-// 1x1 convolution loads 16 bytes at a time where the rows allow it.
+// 1) take kSpan x 4 kSpan tiles, the rest 2 kSpan x 2 kSpan.
 template <typename T, int KS, bool RES>
 int launch_conv(const ConvArgs<T>& a, int n, cudaStream_t stream) {
-  auto on16 = [](const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 == 0; };
-  const int hw = a.height * a.width;
-  const Plan pl = plan<T>(a.m, KS * KS * a.cin, hw, n);
+  const Plan pl = plan<T>(a.m, KS * KS * a.cin, a.height * a.width, n);
   if (pl.splits > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
-  constexpr bool kVec = sizeof(T) == 2 && KS == 1;
-  const bool va = kVec && a.cin % 8 == 0 && on16(a.weight);
-  const bool vb = va && hw % 8 == 0 && a.x_img % 8 == 0 && on16(a.x);
-  if (pl.wm == 1) return launch_tiles<T, KS, RES, false, false, 1>(a, n, pl.splits, stream);
-  if (vb) return launch_tiles<T, KS, RES, kVec, kVec, 2>(a, n, pl.splits, stream);
-  if (va) return launch_tiles<T, KS, RES, kVec, false, 2>(a, n, pl.splits, stream);
-  return launch_tiles<T, KS, RES, false, false, 2>(a, n, pl.splits, stream);
+  if (pl.wm == 1) return launch_tiles<T, KS, RES, 1>(a, n, pl.splits, stream);
+  return launch_tiles<T, KS, RES, 2>(a, n, pl.splits, stream);
 }
 
 }  // namespace res2

@@ -1,26 +1,34 @@
 // The MLP half of a PVTv2 block in one launch, its hidden kept on chip:
 //   out = h + fc2(GELU_poly(dwconv3x3(fc1(LN2(h))) + dwb))
-// over channels-last tokens h (N, H, W, D), for csrc/pvt_block.cu.
+// over channels-last tokens h (N, H, W, D), for csrc/pvt_mlp.cu (row 5,
+// pranet2_tpu/ops/pvt_mlp.py::_kernel, all three of its modes) and
+// csrc/pvt_block.cu (row 8, plain mode).
 //
-// The arithmetic of pranet2_tpu/ops/pvt_block.py::_mlp_half (the plain
-// mode of pvt_mlp.py::_kernel): LN2 in f32 (var = E[x^2] - mu^2) cast to
-// h's type; fc1 in f32 plus b1, the hidden f32 and zero outside the image
-// (the depthwise conv pads fc1's output, bias included); the nine f32 taps
-// summed from zero, column of taps outer and row inner, then dwb; GELU
-// through the clipped degree-5 polynomial erf, cast to h's type; fc2
-// accumulated in f32 plus b2; out = round(h + round(fc2)).  Only fc2's f32
-// summation order (chunk by chunk from a chunk that depends on the block,
-// then the S splits' partial sums in order) differs from mlp_tail.cuh's.
+// The arithmetic of pranet2_tpu/ops/pvt_mlp.py::_kernel: LN2 in f32 (var
+// = E[x^2] - mu^2) cast to h's type; fc1 in f32 plus b1, the hidden f32
+// and zero outside the image (the depthwise conv pads fc1's output, bias
+// included); the nine f32 taps summed from zero, column of taps outer and
+// row inner, then dwb; GELU through the clipped degree-5 polynomial erf,
+// cast to h's type; fc2 accumulated in f32 plus b2.  Then the mode's
+// epilogue:
+//   plain:    out = round(h + round(fc2));
+//   stats:    the same out, and the f32 (mu, rstd) of the rounded out
+//             over D (var = E[x^2] - mu^2), for the next block's LN1;
+//   final_ln: out = round(LN_f32(f32(h) + fc2)) with the stage-end LN's
+//             parameters, no rounding before it.
+// Only fc2's f32 summation order (chunk by chunk from a chunk that depends
+// on the block, then the S splits' partial sums in order) and that of the
+// per-token sums differ from the plain version's.
 //
 // What bounds it: at PVT-PraNet-V2 serving shapes (batch 16 at 352x352,
 // bf16) a call does 8-16 GFLOP of products and about 25 f32 instructions
 // per hidden element outside them (taps, bias, GELU, conversions): 30-90
 // us at the card's peaks.  The first design (fc1, dw+GELU and fc2
-// launches, csrc/pvt_mlp.cu) wrote the f32 hidden z and g to device memory
-// and read them back: 4.7 GB a forward over the 16 blocks, 1.40 ms at 3.35
-// TB/s before any arithmetic.  A block cannot hold all C hidden channels
-// over a halo'd tile, but the depthwise conv is per channel, so here the
-// hidden is walked in chunks of CC channels that never leave the SM:
+// launches) wrote the f32 hidden z and g to device memory and read them
+// back: 4.7 GB a forward over the 16 blocks, 1.40 ms at 3.35 TB/s before
+// any arithmetic.  A block cannot hold all C hidden channels over a
+// halo'd tile, but the depthwise conv is per channel, so here the hidden
+// is walked in chunks of CC channels that never leave the SM:
 //   a block (16 warps, one an SM) owns R image rows of one image over the
 //   full width, and holds LN2 of the R + 2 halo'd rows in shared memory
 //   (h's type).  Per chunk, a tensor phase and an f32 phase, two barriers:
@@ -39,18 +47,19 @@
 // the same time whatever its rows, so fewer blocks of more rows ran faster
 // at stages 3-4.  So the tiles are tall (R = 3-4 rows: the halo
 // re-runs fc1 on (R + 2) / R of the rows) and the chunks wide, and where
-// that leaves fewer row tiles than SMs, S blocks share a tile's hidden
-// channels: each writes its f32 partial sum, and the last of the S to
-// finish (a counter per tile, zeroed by the caller) adds them in split
-// order and writes out.  launch picks R, CC and S (pick): PVTv2-b2 at
-// batch 16, bf16, stages 1-4: R = 4, 4, 3, 4; CC = 32, 64, 64, 32; S = 1,
-// 1, 2, 4; 352, 176, 256 and 192 blocks of 512 threads and 128 registers;
-// 205, 211, 203 and 171 KB of shared memory.  No (N*H*W x C) tensor is
-// written.
+// that leaves fewer row tiles than half the SMs, S blocks share a tile's
+// hidden channels: each writes its f32 partial sum, and the last of the S
+// to finish (a counter per tile, zeroed by a memset before the launch)
+// adds them in split order and runs the epilogue.  A token's D columns lie
+// in several warps' accumulator tiles, so the stats and final_ln modes sum
+// each token's values through shared memory (the chunk buffers are free by
+// then).  launch picks R, CC and S (pick): PVTv2-b2 at batch 16, bf16,
+// stages 1-4: R = 4, 3, 3, 4; CC = 32, 64, 64, 32; S = 1, 1, 1, 2; 352,
+// 240, 128 and 96 blocks of 512 threads and 128 registers.  No (N*H*W x C) tensor is written.
 #pragma once
 
-#include "mlp_tail.cuh"
 #include "mma.cuh"
+#include "tile.cuh"
 
 namespace mlpf {
 
@@ -59,6 +68,22 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 4;    // R
 constexpr int kMaxTiles = 4;   // fc2 accumulator tiles (16 x 32) a warp
 constexpr int kVecs = 11;      // b1, dwb and 9 taps: a chunk's vectors
+
+enum Mode { kPlain = 0, kStats = 1, kFinalLn = 2 };
+
+// GELU with erf(x / sqrt 2) ~ xc * P(xc^2), xc = clip(x, -3.5, 3.5): the
+// TPU kernel's _gelu_erf and its _ERF_COEF, Horner from the top.
+__device__ __forceinline__ float gelu_poly(float x) {
+  const float xc = fminf(fmaxf(x, -3.5f), 3.5f);
+  const float u = xc * xc;
+  float p = -1.7651197891844647e-06f;
+  p = p * u + 8.08939954863686e-05f;
+  p = p * u + -0.0015805384199393212f;
+  p = p * u + 0.017675043414989475f;
+  p = p * u + -0.13004687058013398f;
+  p = p * u + 0.79677470225491f;
+  return 0.5f * x * (1.f + xc * p);
+}
 
 struct Args {
   const void* h;     // (n, hh, w, d) type T: the attention half's output
@@ -74,7 +99,14 @@ struct Args {
   void* out;         // (n, hh, w, d)
   int n, hh, w, d, c;
   float* part;       // (S, n * hh * w, d) float32 partial sums, S > 1 only
-  int* count;        // (n * tiles) zeros: blocks of a tile done, S > 1 only
+  int* count;        // (n * tiles): blocks of a tile done, S > 1 only (launch
+                     // zeroes it)
+  int mode;          // Mode; kPlain where left zero
+  const float* fg;   // final_ln: the stage LN's (d) parameters
+  const float* fb;
+  float eps2;        // the stats' or the stage LN's eps
+  float* mu;         // stats: (n, hh, w) float32 outputs
+  float* rstd;
   // set by launch (pick):
   int rows;          // R: image rows a block
   int chunk;         // CC: hidden channels a chunk (16, 32 or 64)
@@ -235,8 +267,8 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_kernel(Args a) {
             s0 += win[(rr + di) % 3][dj].x * tap[di][dj].x;
             s1 += win[(rr + di) % 3][dj].y * tap[di][dj].y;
           }
-        mma::store2<T>(gs + (rr * w + j) * ldc + 2 * cp, mlp::gelu_poly(s0 + bias.x),
-                       mlp::gelu_poly(s1 + bias.y));
+        mma::store2<T>(gs + (rr * w + j) * ldc + 2 * cp, gelu_poly(s0 + bias.x),
+                       gelu_poly(s1 + bias.y));
       }
     }
   };
@@ -331,15 +363,86 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_kernel(Args a) {
       acc[j].v[0][n][2 * half + 1] = v.y;
     });
   }
-  // out = round(h + round(acc + b2)), two columns at a time
+  // v = acc + b2, then the mode's value in acc, in place: the rounded
+  // out (plain, stats; stored now) or the unrounded f32(h) + v (final_ln)
   const T* b2 = static_cast<const T*>(a.b2);
   T* oi = static_cast<T*>(a.out) + (long long)img * hh * w * d;
+  const bool final_ln = a.mode == kFinalLn;
   each([&](int j, int n, int half, long long tok, int col) {
     const long long idx = tok * d + col;
     const mma::Two<T> x2 = *reinterpret_cast<const mma::Two<T>*>(hi + idx);
+    float* v = acc[j].v[0][n] + 2 * half;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float o = v[e] + to_f32<T>(b2[col + e]);
+      v[e] = final_ln ? to_f32<T>(x2.v[e]) + o : round_to<T>(to_f32<T>(x2.v[e]) + round_to<T>(o));
+    }
+    if (!final_ln) mma::store2<T>(oi + idx, v[0], v[1]);
+  });
+  if (a.mode == kPlain) return;
+
+  // Per-token sums of v and v^2: each row's four lanes, then each column
+  // tile's partial in shared memory (red: [row][column tile][2]), summed
+  // in column-tile order by one thread a token.
+  const int cts = d / 32;
+  float* red = reinterpret_cast<float*>(smem);
+  float* stat = red + mt * 16 * cts * 2;  // [row][2]: mu, rstd (final_ln)
+  mma::wait<0>();
+  __syncthreads();  // every warp is done with the chunk buffers
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int t = warp + j * kWarps;
+    if (t >= tiles) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int o = (t % mt) * 16 + (lane >> 2) + half * 8;
+      const bool ok = o < mo && r0 + o / w < hh;
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = ok ? acc[j].v[0][n][2 * half + e] : 0.f;
+          s1 += v;
+          s2 += v * v;
+        }
+#pragma unroll
+      for (int m = 1; m <= 2; m *= 2) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+      }
+      if ((lane & 3) == 0) {
+        red[(o * cts + t / mt) * 2] = s1;
+        red[(o * cts + t / mt) * 2 + 1] = s2;
+      }
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < mo; o += kThreads) {
+    if (r0 + o / w >= hh) continue;
+    float s1 = 0.f, s2 = 0.f;
+    for (int ct = 0; ct < cts; ++ct) {
+      s1 += red[(o * cts + ct) * 2];
+      s2 += red[(o * cts + ct) * 2 + 1];
+    }
+    const float mu = s1 / d, rstd = rsqrtf(s2 / d - mu * mu + a.eps2);
+    if (final_ln) {
+      stat[2 * o] = mu;
+      stat[2 * o + 1] = rstd;
+    } else {
+      const long long tok = (long long)img * hh * w + (long long)r0 * w + o;
+      a.mu[tok] = mu;
+      a.rstd[tok] = rstd;
+    }
+  }
+  if (!final_ln) return;
+  __syncthreads();
+  each([&](int j, int n, int half, long long tok, int col) {
+    const int o = (int)(tok - (long long)r0 * w);
+    const float mu = stat[2 * o], rstd = stat[2 * o + 1];
     const float* v = acc[j].v[0][n] + 2 * half;
-    mma::store2<T>(oi + idx, to_f32<T>(x2.v[0]) + round_to<T>(v[0] + to_f32<T>(b2[col])),
-                   to_f32<T>(x2.v[1]) + round_to<T>(v[1] + to_f32<T>(b2[col + 1])));
+    mma::store2<T>(oi + tok * d + col, (v[0] - mu) * rstd * a.fg[col] + a.fb[col],
+                   (v[1] - mu) * rstd * a.fg[col + 1] + a.fb[col + 1]);
   });
 }
 
@@ -379,17 +482,21 @@ struct Tile {
 // The tile of an MLP launch over (n, h, w, d) tokens and c hidden channels
 // on the current device.  Few, tall tiles and wide chunks read the weights
 // from L2 fewest times, which bounds the launch at PVTv2-b2's later stages:
-// 64-channel chunks with 4 or 3 rows, else 32 or 16 with the most rows (up
+// 64-channel chunks with 3 or 4 rows, else 32 or 16 with the most rows (up
 // to 4), whose fc2 accumulator and shared memory (the weights once) fit a
 // block; then the fewest splits (1, 2, 4) of the hidden channels that give
-// every SM a block, else the most.  The order is the fastest of a sweep at
-// PVTv2-b2's four stages on the H100.
+// half the SMs a block, else the most: the split's partial sums cost more
+// than the SMs a grid leaves idle.  The order, and that of the splits, is
+// the fastest of sweeps at PVTv2-b2's four stages at batch 16 on the H100
+// (device ms a stats call, chip_smoke.py: stage 2 R = 3 against 4, 0.29
+// against 0.32; stage 3 S = 1 against 2, 0.19 against 0.24; stage 4 S = 2
+// against 4, 0.22 against 0.25).
 template <typename T>
 Tile pick(int n, int h, int w, int d, int c) {
   const int rmax = h < 1 ? 1 : (h < kMaxRows ? h : kMaxRows);
   Tile order[2 + 2 * kMaxRows];
   int k = 0;
-  for (int r = rmax; r >= rmax - 1 && r >= 3; --r) order[k++] = {r, 64, 0};
+  for (int r = rmax - 1 > 3 ? rmax - 1 : 3; r <= rmax; ++r) order[k++] = {r, 64, 0};
   for (int cc = 32; cc >= 16; cc /= 2)
     for (int r = rmax; r >= 1; --r) order[k++] = {r, cc, 0};
   const long long sms = mma::sm_count();
@@ -402,7 +509,7 @@ Tile pick(int n, int h, int w, int d, int c) {
     for (int sp = 1; sp <= 4; sp *= 2) {
       if (c % (t.chunk * sp)) continue;
       t.splits = sp;
-      if (tiles * sp >= sms) break;
+      if (2 * tiles * sp >= sms) break;
     }
     return t;
   }
@@ -412,18 +519,27 @@ Tile pick(int n, int h, int w, int d, int c) {
 // One launch over a.n images, its tile from pick; sets a.nbuf: two
 // buffers where they fit a block's shared memory.  Refuses
 // (cudaErrorInvalidValue) a D not a multiple of 32, a shape no tile fits,
-// or S > 1 without the caller's scratch (sized by the same pick).
+// S > 1 without the caller's scratch (sized by the same pick), or a mode
+// without its outputs or parameters.
 template <typename T>
 int launch(Args a, cudaStream_t s) {
   const Tile t = pick<T>(a.n, a.hh, a.w, a.d, a.c);
   a.rows = t.rows;
   a.chunk = t.chunk;
   a.splits = t.splits;
-  if (a.d % 32 || !a.rows || (a.splits > 1 && !(a.part && a.count)))
+  if (a.d % 32 || !a.rows || (a.splits > 1 && !(a.part && a.count)) ||
+      (a.mode == kStats && !(a.mu && a.rstd)) || (a.mode == kFinalLn && !(a.fg && a.fb)) ||
+      a.mode < kPlain || a.mode > kFinalLn)
     return (int)cudaErrorInvalidValue;
   a.nbuf = smem_bytes<T>(a.rows, a.w, a.d, a.chunk, 2) <= (size_t)mma::kSmemBlock ? 2 : 1;
   const size_t smem = smem_bytes<T>(a.rows, a.w, a.d, a.chunk, a.nbuf);
   if (smem > (size_t)mma::kSmemBlock) return (int)cudaErrorInvalidValue;
+  if (a.splits > 1) {
+    // the tiles' counters start at zero (a memset on the stream, no kernel)
+    const size_t bytes = sizeof(int) * a.n * ((a.hh + a.rows - 1) / a.rows);
+    const cudaError_t err = cudaMemsetAsync(a.count, 0, bytes, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   switch (a.chunk) {
     case 16:
       return launch_cc<T, 16>(a, smem, s);

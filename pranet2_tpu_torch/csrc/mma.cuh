@@ -1,6 +1,6 @@
 // Warp-level matrix products from shared memory and asynchronous copies
-// into it, for the redesigned PVT kernels (sra_kv.cuh, mlp_fused.cuh) and
-// the depthwise 3x3 (dwconv.cu).
+// into it, for the redesigned PVT kernels (sra_kv.cuh, mlp_fused.cuh), the
+// Res2Net products (res2_gemm.cuh) and the depthwise 3x3 (dwconv.cu).
 //
 // A warp holds an (MT*16) x (NT*8) float32 accumulator in the register
 // layout of mma.sync.m16n8k16: for tile (mt, nt), lane l holds rows
@@ -31,6 +31,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 8 or 4 bytes global -> shared, asynchronously (zeros when !valid); both
+// aligned to the copy's size.
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -68,6 +78,14 @@ struct Acc {
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The four 8x8 matrices transposed: from a k x m tile stored row-major
+// (m contiguous) the A fragment of its m x k transpose.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }

@@ -56,10 +56,11 @@ int launch(const kvpath::Args& kva, const void* wq, const void* bq, const void* 
 // float32 with eps2, w1 (c, d), b1 (c), dwk (c, 3, 3), dwb (c), w2 (d, c),
 // b2 (d) of x's type, 32-byte aligned.  Scratch from the caller: part
 // (sr, n * tkv, d) float32 for sr > 1, kv (n, tkv, 2d) and hbuf (n, h, w,
-// d) of x's type.  Where pvt_block_mlp_tile gives the MLP launch S > 1
-// splits of R rows: scratch mlp_part (S, n * h * w, d) float32 and
-// mlp_count (n * ceil(h / R)) int32 zeros; else both may be null.  d = nh *
-// hd with hd and c multiples of 32.  Returns the cudaError_t of the first
+// d) of x's type.  Where pvt_mlp_tile (pvt_mlp.cu: the same pick) gives
+// the MLP launch S > 1 splits of R rows: scratch mlp_part (S, n * h * w,
+// d) float32 and mlp_count (n * ceil(h / R)) int32, which the launch
+// zeroes; else both may be null.  d = nh * hd with hd and c multiples of
+// 32.  Returns the cudaError_t of the first
 // launch that failed.
 extern "C" int pvt_block(int dtype, const void* x, const void* lng, const void* lnb, float eps,
                          const void* wq, const void* bq, const void* wsr, const void* bsr,
@@ -86,17 +87,4 @@ extern "C" int pvt_block(int dtype, const void* x, const void* lng, const void* 
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// The MLP launch's tile on the current device (mlpf::pick): image rows R,
-// hidden channels a chunk CC and splits S into tile[0..2], for the
-// caller's scratch.  Returns cudaErrorInvalidValue where no tile fits.
-extern "C" int pvt_block_mlp_tile(int dtype, int n, int h, int w, int d, int c, int* tile) {
-  mlpf::Tile t{0, 0, 0};
-  if (dtype == kFloat32) t = mlpf::pick<float>(n, h, w, d, c);
-  if (dtype == kBFloat16) t = mlpf::pick<__nv_bfloat16>(n, h, w, d, c);
-  tile[0] = t.rows;
-  tile[1] = t.chunk;
-  tile[2] = t.splits;
-  return t.rows ? 0 : (int)cudaErrorInvalidValue;
 }

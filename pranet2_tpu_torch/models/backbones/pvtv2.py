@@ -20,15 +20,16 @@ attribute names (``patch_embed{1-4}.{proj,norm}``,
 Routing follows the JAX package's, decided by the compute dtype (the patch
 embed's weight type), not by the device:
 
-* bfloat16: each block's attention half goes through
+* bfloat16 in eval: each block's attention half goes through
   ``ops.pvt_attn.sra_attention`` with the K/V path in plain PyTorch, and its
   MLP half through ``ops.pvt_mlp.mlp_block``: "stats" mode in the non-last
   blocks of a stage, whose (mu, rstd) feed the next block's K/V-path LN1,
   and "final_ln" mode in the last block, which applies ``norm{s}`` in its
   epilogue (``pranet2_tpu/models/backbones/pvtv2.py:263-312,380-403,
   495-526``).
-* otherwise (float32): the module chain, with exact-erf GELU and plain
-  softmax attention.
+* otherwise (float32, or training in any type): the module chain, with
+  exact-erf GELU and plain softmax attention.  The kernels are forward
+  only, and JAX trains on the chain too (``pvtv2.py:445-464``).
 
 Two options select the JAX package's opt-in PVT kernels, in bfloat16:
 
@@ -42,7 +43,6 @@ Two options select the JAX package's opt-in PVT kernels, in bfloat16:
   both halves in one call, and the stage LayerNorm on its own (the JAX
   package's ``PRANET2_FUSED=blockfuse`` or ``PVTv2(fused_block=True)``,
   ``pvtv2.py:343-357,499-510``); it takes precedence over ``attn_impl``.
-  Training keeps the other routes.
 
 ``stage_route`` holds the whole rule.  The parameters and the ``state_dict``
 are the same on every route.
@@ -97,12 +97,13 @@ def stage_attn_impl(attn_impl: str, sr: int) -> str:
 def stage_route(kernels: bool, training: bool, attn_impl: str,
                 blockfuse: bool, sr: int) -> str:
     """How the blocks of a stage run: "chain" (the module chain: no
-    kernels, as in float32), "block" (``pvt_block`` per block, then the
-    stage LN: ``blockfuse`` in eval), else the attention kernel "v1" or
-    "v2" with ``mlp_block``."""
-    if not kernels:
+    kernels, as in float32 and in training, where the kernels have no
+    backward and JAX trains on the chain too), "block" (``pvt_block`` per
+    block, then the stage LN: ``blockfuse``), else the attention kernel
+    "v1" or "v2" with ``mlp_block``."""
+    if not kernels or training:
         return "chain"
-    if blockfuse and not training:
+    if blockfuse:
         return "block"
     return stage_attn_impl(attn_impl, sr)
 

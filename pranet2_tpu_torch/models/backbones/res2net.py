@@ -22,7 +22,10 @@ branches are TPU restructures of the same arithmetic and are left out.
   passes through ('normal') or is 3x3/stride avg-pooled ('stage'); concat,
   1x1 project, residual add, ReLU.  width = floor(planes*26/64), scale = 4.
 * Deep stem: three 3x3 convs (3->32->32->64, the first stride 2) with
-  BN+ReLU, then the 3x3/2 maxpool kernel (``ops.stem.max_pool3x3s2``).
+  BN+ReLU, then the 3x3/2 maxpool: in eval the kernel
+  (``ops.stem.max_pool3x3s2``), in training the plain ``ops.max_pool``,
+  which has a gradient (JAX's module path pools the same way,
+  ``pranet2_tpu/models/backbones/res2net.py:350``).
 * Downsample shortcut: stride x stride avg-pool (ceil mode,
   ``count_include_pad=False``), then 1x1 conv + BN.
 """
@@ -34,8 +37,8 @@ import math
 import torch
 from torch import nn
 
-from pranet2_tpu_torch.ops import (avg_pool, max_pool3x3s2, res2_block,
-                                   res2_tail)
+from pranet2_tpu_torch.ops import (avg_pool, max_pool, max_pool3x3s2,
+                                   res2_block, res2_tail)
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -166,7 +169,7 @@ class Res2Net(nn.Module):
 
     def forward(self, x):
         x = torch.relu(self.bn1(self.conv1(x)))
-        x = max_pool3x3s2(x)
+        x = max_pool(x, 3, 2, 1) if self.training else max_pool3x3s2(x)
         x1 = self.layer1(x)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)

@@ -27,13 +27,14 @@ from pranet2_tpu_torch.ops import resize_bilinear
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis with flax's arithmetic.
 
-    Statistics in float32 with var = E[x^2] - mu^2 (clipped at 0), then
+    Statistics in float32 (float64 for a float64 input, as flax computes
+    under x64) with var = E[x^2] - mu^2 (clipped at 0), then
     ``(x - mu) * (rsqrt(var + eps) * weight) + bias`` and a cast back to the
     input's type.  The parameters stay float32 whatever the input's type.
     """
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mu = xf.mean(-1, keepdim=True)
         var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight)

@@ -6,13 +6,17 @@ plain version on a CPU tensor.  Both follow the TPU kernel's rounding: the
 difference in the input type, the channel softmax in float32, the gate cast
 back to fg's type.  Tensors are NCHW; the softmax runs over C.
 
-Forward only: the gradient (a ``torch.autograd.Function``) comes with
-training.
+``dsra_gate`` is a ``torch.autograd.Function``: its backward recomputes
+the plain version's math and differentiates it, as the JAX package's
+custom VJP differentiates its XLA math (``pranet2_tpu/ops/dsra.py:83-124``).
+The plain version computes in ``promote_types(dtype, float32)``: float32
+for bf16 and f32 inputs, float64 for float64 ones, as JAX under x64.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,11 +27,13 @@ def dsra_gate_plain(fg: torch.Tensor, crop_fg: torch.Tensor,
                     crop_bg: torch.Tensor, use_softmax: bool = True
                     ) -> torch.Tensor:
     """Plain PyTorch version of the gate."""
-    diff = (crop_fg - crop_bg).float()
+    diff = (crop_fg - crop_bg).to(torch.promote_types(fg.dtype,
+                                                      torch.float32))
     gate = torch.softmax(diff, dim=1) if use_softmax else diff
     return fg + fg * gate.to(fg.dtype)
 
 
+@functools.cache
 def _kernel():
     f = _build.library("dsra").dsra_gate
     f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -38,14 +44,7 @@ def _kernel():
     return f
 
 
-def dsra_gate(fg: torch.Tensor, crop_fg: torch.Tensor, crop_bg: torch.Tensor,
-              use_softmax: bool = True) -> torch.Tensor:
-    """The gate over (N, C, H, W) maps; ``use_softmax=False`` is the linear form.
-
-    CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
-    three contiguous tensors of one shape and one float type and raises on
-    anything else.  ``dsra_gate.launches`` counts kernel launches.
-    """
+def _forward(fg, crop_fg, crop_bg, use_softmax):
     ts = (fg, crop_fg, crop_bg)
     if all(t.device.type == "cpu" for t in ts):
         return dsra_gate_plain(fg, crop_fg, crop_bg, use_softmax)
@@ -72,6 +71,40 @@ def dsra_gate(fg: torch.Tensor, crop_fg: torch.Tensor, crop_bg: torch.Tensor,
     _build.check(err, "dsra_gate")
     dsra_gate.launches += 1
     return out
+
+
+class _Gate(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward; the plain
+    version's math recomputed and differentiated backward."""
+
+    @staticmethod
+    def forward(ctx, fg, crop_fg, crop_bg, use_softmax):
+        ctx.use_softmax = use_softmax
+        ctx.save_for_backward(fg, crop_fg, crop_bg)
+        return _forward(fg, crop_fg, crop_bg, use_softmax)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(r)
+                   for t, r in zip(ctx.saved_tensors, need)]
+            out = dsra_gate_plain(*ins, ctx.use_softmax)
+            got = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], grad))
+        return (*(next(got) if r else None for r in need), None)
+
+
+def dsra_gate(fg: torch.Tensor, crop_fg: torch.Tensor, crop_bg: torch.Tensor,
+              use_softmax: bool = True) -> torch.Tensor:
+    """The gate over (N, C, H, W) maps; ``use_softmax=False`` is the linear form.
+
+    CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
+    three contiguous tensors of one shape and one float type and raises on
+    anything else.  Differentiable in every input (backward through the
+    plain math).  ``dsra_gate.launches`` counts kernel launches.
+    """
+    return _Gate.apply(fg, crop_fg, crop_bg, use_softmax)
 
 
 dsra_gate.launches = 0

@@ -31,7 +31,7 @@ from pranet2_tpu_torch.ops.pvt_attn import (KV_EPS, check_aligned,
                                             check_args, check_sra_block_args,
                                             kv_scratch, sr_weight,
                                             sra_block_plain)
-from pranet2_tpu_torch.ops.pvt_mlp import mlp_block_plain
+from pranet2_tpu_torch.ops.pvt_mlp import mlp_block_plain, split_scratch
 
 
 def pvt_block_plain(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv,
@@ -53,28 +53,6 @@ def _kernel():
                    p, fl, p, p, fl] + [p] * 10 + [ctypes.c_int] * 7 + [p] * 3)
     f.restype = ctypes.c_int
     return f
-
-
-@functools.cache
-def _tile_query():
-    f = _build.library("pvt_block").pvt_block_mlp_tile
-    f.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    f.restype = ctypes.c_int
-    return f
-
-
-def mlp_tile(n: int, h: int, w: int, d: int, c: int,
-             dtype) -> tuple[int, int, int]:
-    """The MLP launch's tile on the current CUDA device, as
-    ``csrc/mlp_fused.cuh::mlpf::pick`` chooses it: image rows and hidden
-    channels a step of a block takes, and the blocks that share a row
-    tile's hidden channels.  Raises where no tile fits a block."""
-    tile = (ctypes.c_int * 3)()
-    err = _tile_query()(_build.DTYPE_CODES[dtype], n, h, w, d, c, tile)
-    if err:
-        raise ValueError(f"pvt_block: no MLP tile of W {w}, D {d} and C {c} "
-                         "fits a block")
-    return tile[0], tile[1], tile[2]
 
 
 def pvt_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
@@ -124,13 +102,7 @@ def pvt_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
     with torch.cuda.device(x.device):
         # the MLP's partial sums and its tiles' counters where a row tile's
         # hidden channels are split
-        rows, _, splits = mlp_tile(n, h, w, d, c, x.dtype)
-        mpart = mcount = None
-        if splits > 1:
-            mpart = torch.empty((splits, n * h * w, d), dtype=torch.float32,
-                                device=x.device)
-            mcount = torch.zeros(n * -(-h // rows), dtype=torch.int32,
-                                 device=x.device)
+        mpart, mcount = split_scratch(x, c)
         err = _kernel()(
             _build.DTYPE_CODES[x.dtype], *map(ptr, (x, norm_w, norm_b)), eps,
             *map(ptr, (wq, bq, sr_wt, sr_b, kvn_w, kvn_b)), KV_EPS,

@@ -2,10 +2,10 @@
 
 Port of ``pranet2_tpu/ops/pvt_mlp.py::_kernel`` (launchers
 ``fused_mlp_block``, ``fused_mlp_block_stats`` and
-``fused_mlp_block_final_ln``).  ``mlp_block`` launches the hand-written
-kernels (``csrc/pvt_mlp.cu``) on a CUDA tensor and runs the plain version on
-a CPU tensor.  Both follow the TPU kernel's arithmetic, not the module
-chain's:
+``fused_mlp_block_final_ln``).  ``mlp_block`` makes one launch of the
+hand-written kernel (``csrc/pvt_mlp.cu`` on ``csrc/mlp_fused.cuh``, the
+hidden kept on chip) on a CUDA tensor and runs the plain version on a CPU
+tensor.  Both follow the TPU kernel's arithmetic, not the module chain's:
 
 * LN statistics in float32 with var = E[x^2] - mu^2, then gamma and beta,
   then a cast to x's type;
@@ -28,12 +28,14 @@ Tokens are channels-last, x of shape (N, H, W, D).  Parameters come in
 torch layout: ``w1`` (C, D), ``dw_w`` (C, 1, 3, 3), ``w2`` (D, C).
 
 Forward only: training runs the module chain, and this op's gradient and
-the TPU kernel's ``save_acc`` mode come with binary training.
+the TPU kernel's ``save_acc`` mode come with binary training.  No
+(N*H*W x C) tensor is allocated: the launch keeps the hidden on chip.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -99,13 +101,50 @@ def mlp_block_plain(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
     return (ob, *ln_stats(ob.float(), stats_eps))
 
 
+@functools.cache
 def _kernel():
     f = _build.library("pvt_mlp").pvt_mlp_block
-    f.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 16
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                  + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    p = ctypes.c_void_p
+    f.argtypes = ([ctypes.c_int, ctypes.c_int] + [p] * 16
+                  + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [p])
     f.restype = ctypes.c_int
     return f
+
+
+@functools.cache
+def _tile_query():
+    f = _build.library("pvt_mlp").pvt_mlp_tile
+    f.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    f.restype = ctypes.c_int
+    return f
+
+
+def mlp_tile(n: int, h: int, w: int, d: int, c: int,
+             dtype) -> tuple[int, int, int]:
+    """The MLP launch's tile on the current CUDA device, as
+    ``csrc/mlp_fused.cuh::mlpf::pick`` chooses it: image rows and hidden
+    channels a step of a block takes, and the blocks that share a row
+    tile's hidden channels.  Raises where no tile fits a block."""
+    tile = (ctypes.c_int * 3)()
+    err = _tile_query()(_build.DTYPE_CODES[dtype], n, h, w, d, c, tile)
+    if err:
+        raise ValueError(f"MLP launch: no tile of W {w}, D {d} and C {c} "
+                         "fits a block")
+    return tile[0], tile[1], tile[2]
+
+
+def split_scratch(x: torch.Tensor, c: int):
+    """The MLP launch's float32 partial sums (S, N*H*W, D) and its row
+    tiles' int32 counters (the launch zeroes them) where its tile splits
+    the hidden channels (S > 1); else (None, None)."""
+    n, h, w, d = x.shape
+    rows, _, splits = mlp_tile(n, h, w, d, c, x.dtype)
+    if splits == 1:
+        return None, None
+    return (torch.empty((splits, n * h * w, d), dtype=torch.float32,
+                        device=x.device),
+            torch.empty(n * -(-h // rows), dtype=torch.int32,
+                        device=x.device))
 
 
 def _check(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2, final_ln):
@@ -139,11 +178,12 @@ def _check(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2, final_ln):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("mlp_block: inputs must be contiguous (x channels-"
                          "last)")
-    if d % 32 or c % 32 or d > 1024 or n * h * w >= 2 ** 31:
+    if d % 32 or c % 32 or n * h * w >= 2 ** 31:
         raise ValueError(f"mlp_block: D ({d}) and C ({c}) must be multiples "
-                         "of 32, D at most 1024, and N*H*W below 2^31")
-    if any(t.data_ptr() % 32 for t in (w1, w2)):
-        raise ValueError("mlp_block: w1 and w2 must be 32-byte aligned")
+                         "of 32 and N*H*W below 2^31")
+    if any(t.data_ptr() % 32 for t in (w1, b1, dw_w, dw_b, w2)):
+        raise ValueError("mlp_block: w1, b1, dw_w, dw_b and w2 must be "
+                         "32-byte aligned")
 
 
 def mlp_block(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
@@ -153,11 +193,12 @@ def mlp_block(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
 
     Returns the block output, ``(out, mu, rstd)`` when ``stats_eps`` is
     given, or the stage-end LayerNorm of the output when ``final_ln`` is.
-    CPU tensors: the plain version.  CUDA tensors: the kernels, which take x
-    and the Linear/depthwise parameters in one type (float32 or bfloat16),
-    the LayerNorm parameters in float32, all contiguous, and raise on
+    CPU tensors: the plain version.  CUDA tensors: one launch of the
+    kernel, which takes x and the Linear/depthwise parameters in one type
+    (float32 or bfloat16), the LayerNorm parameters in float32, all
+    contiguous, with a tile of ``mlp_tile`` that fits a block, and raises on
     anything else.  ``mlp_block.launches`` counts calls that launched the
-    kernels, ``mlp_block.mode_launches`` the same by mode.
+    kernel, ``mlp_block.mode_launches`` the same by mode.
     """
     if stats_eps is not None and final_ln is not None:
         raise ValueError("mlp_block: stats_eps and final_ln exclude each "
@@ -172,26 +213,22 @@ def mlp_block(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
             else "stats" if stats_eps is not None else "plain")
     n, h, w, d = x.shape
     c = w1.shape[0]
-    m = n * h * w
     out = torch.empty_like(x)
     mu = rstd = None
     if mode == "stats":
         mu = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
         rstd = torch.empty_like(mu)
-    if m == 0:
+    if x.numel() == 0:
         return out if mode != "stats" else (out, mu, rstd)
-    # scratch: the float32 hidden after fc1, and the GELU output in x's
-    # type with its rows padded to fc2's 32-row blocks
-    z = torch.empty((m, c), dtype=torch.float32, device=x.device)
-    g = torch.empty((-(-m // 32) * 32, c), dtype=x.dtype, device=x.device)
     fw, fb = final_ln if final_ln is not None else (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
+        part, count = split_scratch(x, c)
         err = _kernel()(
             _build.DTYPE_CODES[x.dtype], MODES[mode],
             *map(ptr, (x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2, fw, fb,
-                       out, mu, rstd, z, g)),
-            m, h, w, d, c, eps,
+                       out, mu, rstd, part, count)),
+            n, h, w, d, c, eps,
             stats_eps if mode == "stats" else final_eps,
             _build.stream_ptr(x))
     _build.check(err, "mlp_block")

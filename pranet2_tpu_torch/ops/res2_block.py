@@ -23,6 +23,7 @@ the module chain.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -51,26 +52,45 @@ def bottle2neck_plain(x, w1, s1, t1, wd, sd, td, w3, s3, t3):
     return res2_tail_plain(torch.cat(parts, 1), x, w3, s3, t3)
 
 
+@functools.cache
 def _kernel():
     lib = _build.library("res2_block")
-    f, ws = lib.res2_block, lib.res2_block_workspace
-    f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    f, size = lib.res2_block, lib.res2_block_scratch
+    f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
     f.restype = ctypes.c_int
-    ws.argtypes = [ctypes.c_int] * 7
-    ws.restype = ctypes.c_longlong
-    return f, ws
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_longlong
+    return f, size
+
+
+@functools.cache
+def _tile_query():
+    f = _build.library("res2_block").res2_block_tile
+    f.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    f.restype = None
+    return f
+
+
+def conv3x3_tile(n: int, c: int, width: int, h: int, w: int):
+    """The bfloat16 3x3 products' pixel tile (rows, columns) and K splits
+    on the current CUDA device, as ``csrc/res2_gemm.cuh::plan3x3`` picks
+    them: the block stages the tile with a one-pixel halo."""
+    tile = (ctypes.c_int * 3)()
+    _tile_query()(n, c, width, h, w, tile)
+    return tile[0], tile[1], tile[2]
 
 
 def fused_bottle2neck(x, w1, s1, t1, wd, sd, td, w3, s3, t3):
     """A whole 'normal' Bottle2neck (stride 1, no downsample, 4 splits).
 
     CPU tensors: the plain version.  CUDA tensors: the kernels, which take
-    contiguous NCHW maps and weights in one type (float32 or bfloat16), the
+    contiguous NCHW maps and weights in one type (float32 or bfloat16; in
+    bfloat16 C a multiple of 8 and every tensor 16-byte aligned), the
     folded BatchNorms in float32, and raise on anything else.  A call
-    launches a chain of five products (each with a second, split-K
-    epilogue launch where it splits) and counts once in
-    ``fused_bottle2neck.launches``.
+    launches a chain of five products (in bfloat16 after a weight-layout
+    launch; each product with a split-K reduce launch where it splits) and
+    counts once in ``fused_bottle2neck.launches``.
     """
     if x.device.type == "cpu":
         return bottle2neck_plain(x, w1, s1, t1, wd, sd, td, w3, s3, t3)
@@ -89,24 +109,24 @@ def fused_bottle2neck(x, w1, s1, t1, wd, sd, td, w3, s3, t3):
                {"s1": (s1, (SCALE * width,)), "t1": (t1, (SCALE * width,)),
                 "sd": (sd, (SCALE - 1, width)), "td": (td, (SCALE - 1, width)),
                 "s3": (s3, (c,)), "t3": (t3, (c,))})
+    if x.dtype == torch.bfloat16 and c % 8:
+        raise ValueError(f"fused_bottle2neck: bfloat16 takes C ({c}) a "
+                         "multiple of 8")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    # scratch: u's groups 0-2, the concat buffer the projection reads, and
-    # the split-K partial sums
-    u = torch.empty((n, (SCALE - 1) * width, h, w), dtype=x.dtype,
-                    device=x.device)
-    cat = torch.empty((n, SCALE * width, h, w), dtype=x.dtype,
-                      device=x.device)
     code = _build.DTYPE_CODES[x.dtype]
-    kernel, elems = _kernel()
-    ws = torch.empty(max(elems(code, n, c, width, c, h, w), 1),
-                     dtype=torch.float32, device=x.device)
+    kernel, size = _kernel()
     with torch.cuda.device(x.device):
+        # scratch: u's groups 0-2, the concat buffer the projection reads,
+        # the prepared weights and the split-K partial sums, as the kernel
+        # lays them out for this device
+        scratch = torch.empty(size(code, n, c, width, h, w),
+                              dtype=torch.uint8, device=x.device)
         err = kernel(code, *(t.data_ptr() for t in (x, w1, s1, t1, wd, sd, td,
-                                                    w3, s3, t3, u, cat, out,
-                                                    ws)),
-                     n, c, width, c, h, w, _build.stream_ptr(x))
+                                                    w3, s3, t3, out,
+                                                    scratch)),
+                     n, c, width, h, w, _build.stream_ptr(x))
     _build.check(err, "fused_bottle2neck")
     fused_bottle2neck.launches += 1
     return out

@@ -17,6 +17,7 @@ float32.  Forward only: training runs the module chain.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,6 +51,7 @@ def res2_tail_plain(cc, short, w3, s3, t3):
     return bn_relu(conv1x1(cc, w3), s3, t3, short).to(cc.dtype)
 
 
+@functools.cache
 def _kernel():
     lib = _build.library("res2_tail")
     f, ws = lib.res2_tail, lib.res2_tail_workspace
@@ -86,14 +88,19 @@ def check_args(what: str, x, mats: dict, vecs: dict) -> None:
         raise ValueError(f"{what}: inputs must be contiguous (maps NCHW)")
     if max(t.numel() for t in ts) >= 2 ** 31:
         raise ValueError(f"{what}: tensors must have fewer than 2^31 elements")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t, _ in
+                                         [(x, None), *mats.values()]):
+        raise ValueError(f"{what}: bfloat16 maps and weights must be 16-byte "
+                         "aligned")
 
 
 def fused_tail(cc, short, w3, s3, t3):
     """``relu(conv1x1(cc) * s3 + t3 + short)`` in one pass.
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
-    contiguous NCHW maps and w3 in one type (float32 or bfloat16), s3 and t3
-    in float32, and raises on anything else.  ``fused_tail.launches`` counts
+    contiguous NCHW maps and w3 in one type (float32 or bfloat16; in
+    bfloat16 Cin a multiple of 8, Cout even, cc and w3 16-byte aligned), s3
+    and t3 in float32, and raises on anything else.  ``fused_tail.launches`` counts
     kernel launches.
     """
     if cc.device.type == "cpu":
@@ -107,15 +114,19 @@ def fused_tail(cc, short, w3, s3, t3):
     check_args("fused_tail", cc,
                {"short": (short, (n, cout, h, w)), "w3": (w3, (cout, cin))},
                {"s3": (s3, (cout,)), "t3": (t3, (cout,))})
+    if cc.dtype == torch.bfloat16 and (cin % 8 or cout % 2):
+        raise ValueError(f"fused_tail: bfloat16 takes Cin ({cin}) a multiple "
+                         f"of 8 and Cout ({cout}) even")
     out = torch.empty_like(short)
     if out.numel() == 0:
         return out
     code = _build.DTYPE_CODES[cc.dtype]
     kernel, elems = _kernel()
-    # float32 scratch for the split-K partial sums, where the launch splits
-    ws = torch.empty(max(elems(code, n, cin, cout, h, w), 1),
-                     dtype=torch.float32, device=cc.device)
     with torch.cuda.device(cc.device):
+        # float32 scratch for the split-K partial sums, where the launch
+        # splits on this device
+        ws = torch.empty(max(elems(code, n, cin, cout, h, w), 1),
+                         dtype=torch.float32, device=cc.device)
         err = kernel(code, cc.data_ptr(), short.data_ptr(), w3.data_ptr(),
                      s3.data_ptr(), t3.data_ptr(), out.data_ptr(),
                      ws.data_ptr(), n, cin, cout, h, w, _build.stream_ptr(cc))

@@ -10,6 +10,7 @@ nine shifted maxes of ``ops.pooling.max_pool``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +23,7 @@ def max_pool3x3s2_plain(x: torch.Tensor) -> torch.Tensor:
     return max_pool(x, 3, 2, 1)
 
 
+@functools.cache
 def _kernel():
     f = _build.library("maxpool").maxpool3x3s2
     f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

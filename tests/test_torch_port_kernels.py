@@ -15,8 +15,8 @@ import torch
 from pranet2_tpu_torch import get_model, ops
 from pranet2_tpu_torch.ops import (dsra, dwconv, pvt_attn, pvt_mlp,
                                    res2_block, res2_tail, stem)
-from pranet2_tpu_torch.ops.pvt_block import (mlp_tile, pvt_block,
-                                             pvt_block_plain)
+from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
+from pranet2_tpu_torch.ops.pvt_mlp import mlp_tile
 from pranet2_tpu_torch.testing import excess, random_bottle2neck
 import torch_pvt_faults
 import torch_res2_faults
@@ -117,22 +117,40 @@ def _mlp_args(g, n, h, w, d, c, dtype):
             _rand(g, (d,), dtype, 0.1), 1e-6)
 
 
+# mlp_block shapes: (n, h, w, d, c); the launch's tile splits the hidden
+# channels over S = 1, 2 and 4 blocks among them (on a 132-SM H100)
+MLP_SHAPES = [
+    (16, 88, 88, 64, 512),     # stage 1 of PVTv2-b2 at 352x352, batch 16
+    (16, 11, 11, 512, 2048),   # stage 4, batch 16
+    (2, 88, 88, 64, 512),      # stage 1, batch 2
+    (1, 7, 13, 64, 256),       # W not a multiple of any tile
+    (2, 11, 11, 320, 1280),    # W = 11; 242 rows, not a multiple of 32
+    (3, 5, 3, 32, 64),         # 45 rows, a ragged last tile everywhere
+    (1, 1, 1, 512, 2048),      # one token
+]
+
+
+def _mlp_mode_kw(g, d, mode):
+    return {"plain": {}, "stats": {"stats_eps": 1e-6},
+            "final_ln": {"final_ln": (_rand(g, (d,), torch.float32, 0.1, 1.0),
+                                      _rand(g, (d,), torch.float32, 0.1))}
+            }[mode]
+
+
+@pytest.mark.cuda
+def test_mlp_shapes_cover_every_split(cuda):
+    splits = {mlp_tile(*shape, torch.bfloat16)[2] for shape in MLP_SHAPES}
+    assert {1, 2, 4} <= splits, splits
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["plain", "stats", "final_ln"])
-@pytest.mark.parametrize("n,h,w,d,c", [
-    (2, 88, 88, 64, 512),      # stage 1 of PVTv2-b2 at 352x352, batch 2
-    (1, 7, 13, 64, 256),       # W not a multiple of any tile
-    (2, 11, 11, 320, 1280),    # C = 1280; 242 rows, not a multiple of 32
-    (3, 5, 3, 32, 64),         # 45 rows, a ragged last tile everywhere
-    (1, 1, 1, 512, 2048),      # one token
-])
+@pytest.mark.parametrize("n,h,w,d,c", MLP_SHAPES)
 def test_mlp_kernel_matches_plain(cuda, n, h, w, d, c, mode, dtype):
     g = torch.Generator(device=cuda).manual_seed(n * h * w + d)
     args = _mlp_args(g, n, h, w, d, c, dtype)
-    kw = {"plain": {}, "stats": {"stats_eps": 1e-6},
-          "final_ln": {"final_ln": (_rand(g, (d,), torch.float32, 0.1, 1.0),
-                                    _rand(g, (d,), torch.float32, 0.1))}}[mode]
+    kw = _mlp_mode_kw(g, d, mode)
     before = (pvt_mlp.mlp_block.launches,
               pvt_mlp.mlp_block.mode_launches[mode])
     got = pvt_mlp.mlp_block(*args, **kw)
@@ -148,6 +166,98 @@ def test_mlp_kernel_matches_plain(cuda, n, h, w, d, c, mode, dtype):
         got, want = got[0], want[0]
     assert got.dtype == dtype and got.shape == want.shape
     _assert_held(got, want, PVT_TOL[dtype], _mlp_base(args, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "stats", "final_ln"])
+def test_mlp_block_is_one_launch(cuda, mode):
+    """Stage 4 at batch 16, bf16, where the hidden channels are split: each
+    call launches the on-chip MLP kernel once and no other kernel (the
+    split counters' zeroing is a memset)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    args = _mlp_args(g, 16, 11, 11, 512, 2048, torch.bfloat16)
+    kw = _mlp_mode_kw(g, 512, mode)
+    pvt_mlp.mlp_block(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pvt_mlp.mlp_block(*args, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "emset" not in e.name]
+    assert len(names) == 3 and all("mlp_kernel" in k for k in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stats", "final_ln"])
+@pytest.mark.parametrize("n,side,d,c", [(4, 22, 320, 1280),
+                                        (16, 11, 512, 2048)])
+def test_mlp_split_sum_repeats(cuda, n, side, d, c, mode):
+    """Stage 3 at batch 4 and stage 4 at batch 16, bf16, where blocks split
+    a row tile's hidden channels and the last to finish adds their partial
+    sums and runs the mode's epilogue: fifty calls give the first call's
+    outputs bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(side + c)
+    args = _mlp_args(g, n, side, side, d, c, torch.bfloat16)
+    kw = _mlp_mode_kw(g, d, mode)
+    assert mlp_tile(n, side, side, d, c, torch.bfloat16)[2] > 1
+    first = pvt_mlp.mlp_block(*args, **kw)
+    first = first if mode == "stats" else (first,)
+    for _ in range(50):
+        got = pvt_mlp.mlp_block(*args, **kw)
+        got = got if mode == "stats" else (got,)
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", torch_pvt_faults.MLP_FAULTS)
+def test_mlp_epilogue_checks_reject_planted_faults(cuda, fault):
+    """Stage 2 at batch 2, bf16, x offset by 32 so that a bf16 rounding of
+    the output (a step of 0.25 there) lies above the tolerance.  The
+    kernel's (mu, rstd) are held to those of its own output, and those of
+    a copy that takes them before the rounding fail that check; its
+    stage-LN output is held to the plain version's, and not to a copy that
+    rounds before the stage LN."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = _mlp_args(g, 2, 44, 44, 128, 1024, torch.bfloat16)
+    args = (args[0] + 32,) + args[1:]
+    mode = "stats" if fault == "stats_unrounded" else "final_ln"
+    kw = _mlp_mode_kw(g, 128, mode)
+    got = pvt_mlp.mlp_block(*args, **kw)
+    want = pvt_mlp.mlp_block_plain(*args, **kw)
+    bad = torch_pvt_faults.mlp_block(fault, *args, **kw)
+    if mode == "stats":
+        for out, held in ((got, True), (bad, False)):
+            stats = pvt_mlp.ln_stats(out[0].float(), 1e-6)
+            over = max(excess(out[i], stats[i - 1], None, 1e-4)
+                       for i in (1, 2))
+            assert (over <= 1) == held, over
+        return
+    base = _mlp_base(args, kw)
+    _assert_held(got, want, PVT_TOL[torch.bfloat16], base)
+    assert excess(got, bad, base, PVT_TOL[torch.bfloat16]) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_softmax", [True, False])
+def test_dsra_gate_grad_on_the_card(cuda, use_softmax):
+    """The gate's gradient through the kernel's autograd.Function on the
+    card against the plain version's autograd on the CPU, float32."""
+    g = torch.Generator().manual_seed(4)
+    ins = [torch.randn((2, 4, 11, 11), generator=g) for _ in range(3)]
+    cot = torch.randn((2, 4, 11, 11), generator=g)
+    cpu = [t.clone().requires_grad_() for t in ins]
+    dsra.dsra_gate_plain(*cpu, use_softmax).backward(cot)
+    dev = [t.to(cuda).requires_grad_() for t in ins]
+    before = dsra.dsra_gate.launches
+    ops.dsra_gate(*dev, use_softmax).backward(cot.to(cuda))
+    assert dsra.dsra_gate.launches == before + 1
+    for a, b in zip(dev, cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -479,27 +589,27 @@ def test_pvt_block_kernel_matches_plain(cuda, n, h, w, d, nh, sr, c, dtype):
                                           (22, 320, 4), (11, 512, 4)])
 def test_block_kernel_tiles_fill_the_card(cuda, side, d, ratio, dtype):
     """PVTv2-b2's stages at batch 16: the MLP launch's tile, as its launch
-    picks it, gives every SM a block and splits the hidden channels evenly;
-    a smaller batch splits them further, up to 4 ways."""
+    picks it, gives half the SMs a block and splits the hidden channels
+    evenly; a smaller batch splits them further, up to 4 ways."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     c = d * ratio
     rows, chunk, splits = mlp_tile(16, side, side, d, c, dtype)
-    assert 16 * -(-side // rows) * splits >= sms
+    assert 2 * 16 * -(-side // rows) * splits >= sms
     assert c % (chunk * splits) == 0
     assert mlp_tile(2, side, side, d, c, dtype)[2] >= splits
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("side,d,nh,sr,c", [(22, 320, 5, 2, 1280),
-                                            (11, 512, 8, 1, 2048)])
-def test_pvt_block_split_sum_repeats(cuda, side, d, nh, sr, c):
-    """Stages 3 and 4 at batch 16, bf16, where blocks split a row tile's
-    hidden channels and the last to finish adds their partial sums: fifty
-    calls give the first call's output bit for bit."""
+@pytest.mark.parametrize("n,side,d,nh,sr,c", [(4, 22, 320, 5, 2, 1280),
+                                              (16, 11, 512, 8, 1, 2048)])
+def test_pvt_block_split_sum_repeats(cuda, n, side, d, nh, sr, c):
+    """Stage 3 at batch 4 and stage 4 at batch 16, bf16, where blocks split
+    a row tile's hidden channels and the last to finish adds their partial
+    sums: fifty calls give the first call's output bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(side + c)
-    args = (*_sra_block_args(g, 16, side, side, d, nh, sr, torch.bfloat16),
+    args = (*_sra_block_args(g, n, side, side, d, nh, sr, torch.bfloat16),
             *_mlp_args(g, 1, 1, 1, d, c, torch.bfloat16)[1:9])
-    assert mlp_tile(16, side, side, d, c, torch.bfloat16)[2] > 1
+    assert mlp_tile(n, side, side, d, c, torch.bfloat16)[2] > 1
     first = ops.pvt_block(*args, nh, sr)
     for _ in range(50):
         assert torch.equal(ops.pvt_block(*args, nh, sr), first)

@@ -239,7 +239,7 @@ def test_attn_impl_routing_matches_jax(monkeypatch):
         pvtv2.PVTv2(depths=(1, 1, 1, 1), attn_impl="v3")
     assert pvtv2.stage_route(False, False, "v2", True, 8) == "chain"
     assert pvtv2.stage_route(True, False, "v2", True, 8) == "block"
-    assert pvtv2.stage_route(True, True, "auto:2", True, 2) == "v2"
+    assert pvtv2.stage_route(True, True, "auto:2", True, 2) == "chain"
 
 
 def _nchw(x):

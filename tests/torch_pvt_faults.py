@@ -11,10 +11,14 @@ check rejects them.  Imports no JAX, so the card tests use it too.
   attention half's output h (``pvt_block``);
 * ``mlp_tile_halo_dropped``: the depthwise 3x3 of the MLP seeing zeros
   across every edge of the MLP launch's R-row tiles (``pvt_block``; R as
-  ``ops.pvt_block.mlp_tile`` reads it from the launch on a CUDA device,
+  ``ops.pvt_mlp.mlp_tile`` reads it from the launch on a CUDA device,
   else 4, the most rows a tile takes);
 * ``dw_taps_transposed``: the depthwise taps read w[dj, di]
-  (``depthwise_conv3x3``).
+  (``depthwise_conv3x3``);
+* ``stats_unrounded``: the (mu, rstd) of the MLP's output taken before its
+  rounding to x's type (``mlp_block``, stats mode);
+* ``final_ln_rounded``: the output rounded to x's type before the stage
+  LayerNorm (``mlp_block``, final_ln mode).
 """
 
 import torch
@@ -23,12 +27,13 @@ import torch.nn.functional as F
 from pranet2_tpu_torch.ops.dwconv import depthwise_conv3x3_plain
 from pranet2_tpu_torch.ops.pvt_attn import (KV_EPS, attend_plain, ln1_plain,
                                             sr_weight, sra_block_plain)
-from pranet2_tpu_torch.ops.pvt_block import mlp_tile
 from pranet2_tpu_torch.ops.pvt_mlp import (gelu_poly, layer_norm_f32,
-                                           mlp_block_plain)
+                                           ln_stats, mlp_block_plain,
+                                           mlp_tile)
 
 SRA_FAULTS = ("sr_window_transposed", "kv_ln_dropped", "kv_patch_row_dropped")
 BLOCK_FAULTS = ("mlp_residual_from_x", "mlp_tile_halo_dropped")
+MLP_FAULTS = ("stats_unrounded", "final_ln_rounded")
 FAULTS = (*SRA_FAULTS, *BLOCK_FAULTS, "dw_taps_transposed")
 
 
@@ -55,18 +60,18 @@ def sra_block(fault, x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b,
     return attend_plain(x, yb, wq, bq, kv, wp, bp, num_heads, True)
 
 
-def mlp_tile_halo_dropped(h, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
-                          eps, rows):
-    """``mlp_block_plain`` whose depthwise 3x3 sees zeros above the first
-    and below the last row of every ``rows``-row tile."""
-    dt = h.dtype
+def _mlp_out(h, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2, eps,
+             rows=None):
+    """The float32 fc2 output of ``mlp_block_plain`` (before its residual
+    and rounding); with ``rows``, its depthwise 3x3 sees zeros above the
+    first and below the last row of every ``rows``-row tile."""
     n, hh, w, d = h.shape
-    yb = layer_norm_f32(h.float(), norm_w, norm_b, eps).to(dt)
+    yb = layer_norm_f32(h.float(), norm_w, norm_b, eps).to(h.dtype)
     z = yb.float() @ w1.float().t() + b1.float()
     zp = F.pad(z, (0, 0, 1, 1, 1, 1))
     i = torch.arange(hh, device=h.device)
     # the tap row di - 1 lies in another tile
-    cut = {0: i % rows == 0, 2: i % rows == rows - 1}
+    cut = {} if rows is None else {0: i % rows == 0, 2: i % rows == rows - 1}
     taps = dw_w.float()[:, 0]
     acc = torch.zeros_like(z)
     for dj in range(3):
@@ -75,8 +80,29 @@ def mlp_tile_halo_dropped(h, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
             if di in cut:
                 t = t.masked_fill(cut[di].view(1, hh, 1, 1), 0.0)
             acc = acc + t * taps[:, di, dj]
-    g = gelu_poly(acc + dw_b.float()).to(dt)
-    return h + (g.float() @ w2.float().t() + b2.float()).to(dt)
+    g = gelu_poly(acc + dw_b.float()).to(h.dtype)
+    return g.float() @ w2.float().t() + b2.float()
+
+
+def mlp_tile_halo_dropped(h, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
+                          eps, rows):
+    """``mlp_block_plain`` whose depthwise 3x3 sees zeros above the first
+    and below the last row of every ``rows``-row tile."""
+    return h + _mlp_out(h, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2, eps,
+                        rows).to(h.dtype)
+
+
+def mlp_block(fault, x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
+              eps=1e-6, stats_eps=None, final_ln=None, final_eps=1e-6):
+    """``mlp_block_plain`` with ``fault`` (one of ``MLP_FAULTS``) planted
+    in its epilogue: ``stats_unrounded`` needs ``stats_eps``,
+    ``final_ln_rounded`` ``final_ln``."""
+    out = _mlp_out(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2, eps)
+    ob = x + out.to(x.dtype)
+    if fault == "stats_unrounded":
+        return (ob, *ln_stats(x.float() + out, stats_eps))
+    assert fault == "final_ln_rounded"
+    return layer_norm_f32(ob.float(), *final_ln, final_eps).to(x.dtype)
 
 
 def pvt_block(fault, x, *args, num_heads, sr, eps=1e-6, eps2=1e-6):
