@@ -120,7 +120,7 @@ def bound_ms(nbytes: int, ops: int, mma_ops: int = 0,
 
 # the hand kernels' launches by name in a device trace
 LAUNCH_LABELS = {"patch_kernel": "kv_patch", "finish_kernel": "kv_finish",
-                 "sra_kernel": "attention", "mlp_kernel": "mlp",
+                 "attend_kernel": "attention", "mlp_kernel": "mlp",
                  "prep_kernel": "prep", "conv1x1_kernel": "conv1x1",
                  "conv3x3_kernel": "conv3x3",
                  "split_reduce_kernel": "split_reduce",
@@ -510,19 +510,34 @@ def check_sra_attention(torch, dev) -> dict:
             o = o.transpose(1, 2).reshape(x.shape)
             return x + F.linear(o, p["wp"], p["bp"])
 
+        kernel = lambda: pvt_attn.sra_attention(*args)
         row = {"shape": list(x.shape), "heads": nh, "tkv": tkv,
                "dtype": name, "main_path": dt == torch.bfloat16,
                "calls_per_forward": depth,
                "max_abs_err": err, "excess": over,
-               "ms": time_ms(lambda: pvt_attn.sra_attention(*args)),
+               "ms": time_ms(kernel),
+               "device_ms": kernel_ms(torch, kernel),
                "plain_ms": time_ms(
                    lambda: pvt_attn.sra_attention_plain(*args), reps=3,
                    rounds=3),
                "bound_ms": b, "bound_by": by,
-               "library_chain_ms": time_ms(chain)}
+               "library_chain_ms": time_ms(chain),
+               "library_chain_device_ms": kernel_ms(torch, chain),
+               "launches_by_kernel": _one_launch(
+                   torch, kernel, "attention",
+                   f"sra_attention stage {si + 1} {name}")}
+        # grid (query tiles, cluster size, images)
+        grid = row["launches_by_kernel"]["attention"]["grids"]
+        print(f"sra_attention stage {si + 1} {name}: grid {grid}, ms "
+              f"{row['ms']:.4f}, device {row['device_ms']:.4f}, chain "
+              f"{row['library_chain_ms']:.4f}, device "
+              f"{row['library_chain_device_ms']:.4f}")
         rows.append(row)
-    return _summary("sra_attention", "pranet2_tpu_torch/csrc/pvt_attn.cu",
-                    "pranet2_tpu/ops/pvt_attn.py:43", rows)
+    out = _summary("sra_attention", "pranet2_tpu_torch/csrc/pvt_attn.cu",
+                   "pranet2_tpu/ops/pvt_attn.py:43", rows)
+    out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/sra_attend.cuh"]
+    out["launch_ms"] = _launch_ms(rows)
+    return out
 
 
 def _sra_block_case(torch, g, dev, dt, si):
@@ -1096,7 +1111,7 @@ def device_time(torch, fn, forwards: int = 5) -> dict:
     if not rows:
         return {"busy_ms": None, "ported_kernels_ms": None, "top": []}
     ported = sum(ms for k, ms in rows if any(
-        n in k for n in ("maxpool3x3s2", "dsra_gate", "sra_kernel",
+        n in k for n in ("maxpool3x3s2", "dsra_gate", "attend_kernel",
                          "patch_kernel", "finish_kernel", "mlp_kernel",
                          "dw3x3_kernel", "prep_kernel", "conv1x1_kernel",
                          "conv3x3_kernel", "split_reduce_kernel",

@@ -12,7 +12,9 @@
 // bf16; Tkv = 121 at every stage) the four products come to 2.5-5.9 GFLOP
 // a call against 4-32 MB of x, K/V and weights in and out: 3-10 us at the
 // card's peaks, bytes at stage 1 and operations at stages 2-4.  The design
-// keeps everything between x and out in shared memory (sra_attend.cuh).
+// (sra_attend.cuh) keeps scores, P and each head's output in registers,
+// splits the heads over a thread-block cluster that shares a query tile
+// and exchanges their outputs through distributed shared memory.
 
 #include "sra_attend.cuh"
 

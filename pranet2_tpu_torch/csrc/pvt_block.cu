@@ -5,8 +5,9 @@
 //   1. the K/V path (sra_kv.cuh): the split patch product into f32 partials
 //      (sr > 1), then their sum, bsr, the kv LN and the kv product -> kv
 //      (N, Tkv, 2D); two launches where sr > 1, one at sr = 1;
-//   2. sra::sra_kernel<kExactResidual> (sra_attend.cuh), as the whole-half
-//      kernel runs it: the attention half with its residual rounded once
+//   2. sra::attend_kernel<kExactResidual> (sra_attend.cuh), as the
+//      whole-half kernel runs it: the attention half with its residual
+//      rounded once, the heads split over a thread-block cluster
 //      -> h (N, H, W, D);
 //   3. mlpf::mlp_kernel (mlp_fused.cuh): the MLP half on h, its hidden
 //      walked in chunks that stay on chip -> out.

@@ -232,7 +232,8 @@ def sra_attention(x, norm_w, norm_b, wq, bq, kv, wp, bp, num_heads: int,
                 "bp": (bp, (d,)),
                 "kv": (kv, (x.shape[0], kv.shape[1], 2 * d))})
     check_heads("sra_attention", d, num_heads)
-    check_aligned("sra_attention", wq=wq, wp=wp, kv=kv)
+    check_aligned("sra_attention", x=x, norm_w=norm_w, norm_b=norm_b, wq=wq,
+                  bq=bq, kv=kv, wp=wp, bp=bp)
     if x.numel() == 0:
         return torch.empty_like(x)
     out = _launch_attention(x, norm_w, norm_b, wq, bq, kv, wp, bp, num_heads,
@@ -262,7 +263,8 @@ def check_sra_block_args(what, x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w,
         typed.update(sr_w=(sr_w, (d, d, sr, sr)), sr_b=(sr_b, (d,)))
     check_args(what, x, ln, typed)
     check_heads(what, d, num_heads)
-    check_aligned(what, wq=wq, wp=wp, wkv=wkv)
+    check_aligned(what, x=x, norm_w=norm_w, norm_b=norm_b, wq=wq, bq=bq,
+                  wkv=wkv, wp=wp, bp=bp)
 
 
 def kv_scratch(x, sr: int):

@@ -267,6 +267,9 @@ def test_dsra_gate_grad_on_the_card(cuda, use_softmax):
     (2, 9, 13, 320, 5, 7),     # nh = 5, W odd, 117 rows a ragged tile
     (1, 4, 4, 512, 8, 1),      # sr = 8 on a tiny map: one K/V token
     (3, 5, 7, 128, 2, 33),
+    (2, 12, 12, 64, 1, 200),   # Tkv > 128: two passes, the max first
+    (2, 11, 11, 512, 16, 121),  # hd 32: a cluster of 8, two heads a block
+    (2, 9, 13, 352, 11, 33),   # nh 11: a cluster of 1, eleven heads a block
 ])
 def test_sra_kernel_matches_plain(cuda, n, h, w, d, nh, tkv, dtype):
     g = torch.Generator(device=cuda).manual_seed(h * w + d + tkv)
@@ -365,6 +368,45 @@ def test_pvt_checks_reject_planted_faults(cuda, fault):
     _assert_held(got, pvt_mlp.mlp_block_plain(*args),
                  PVT_TOL[torch.bfloat16], base)
     assert excess(got, bad, base, PVT_TOL[torch.bfloat16]) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", torch_pvt_faults.ATTN_FAULTS)
+def test_attention_checks_reject_planted_faults(cuda, fault):
+    """``sra_attention`` held to its plain version, and not to a copy with
+    a head exchange gone wrong or with padded keys in the softmax.  bf16
+    at stage-2 shapes; K scaled by 1/4, so that the scores lie near 0 and a
+    padded key weighs about what a real one does, and the proj bias zero,
+    so that the kernel's part is the attention's alone."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    kv = _rand(g, (2, 121, 256), bf16)
+    kv[..., :128] *= 0.25
+    args = (_rand(g, (2, 44, 44, 128), bf16),
+            _rand(g, (128,), f32, 0.1, 1.0), _rand(g, (128,), f32, 0.1),
+            _rand(g, (128, 128), bf16, 128 ** -0.5),
+            _rand(g, (128,), bf16, 0.1), kv,
+            _rand(g, (128, 128), bf16, 128 ** -0.5),
+            torch.zeros(128, dtype=bf16, device=cuda), 2, 1e-6)
+    got = pvt_attn.sra_attention(*args)
+    _assert_held(got, pvt_attn.sra_attention_plain(*args), PVT_TOL[bf16],
+                 args[0])
+    bad = torch_pvt_faults.sra_attention(fault, *args)
+    assert excess(got, bad, args[0], PVT_TOL[bf16]) > 1
+
+
+@pytest.mark.cuda
+def test_attention_cluster_split_repeats(cuda):
+    """Stage 4 at batch 16, bf16, the heads split over clusters of 8
+    blocks that exchange their outputs: ``sra_block`` and ``pvt_block``
+    give the first call's output bit for bit on every later call."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    args = _sra_block_args(g, 16, 11, 11, 512, 8, 1, torch.bfloat16)
+    mlp = _mlp_args(g, 1, 1, 1, 512, 2048, torch.bfloat16)[1:9]
+    first = (ops.sra_block(*args, 8, 1), ops.pvt_block(*args, *mlp, 8, 1))
+    for _ in range(10):
+        assert torch.equal(ops.sra_block(*args, 8, 1), first[0])
+        assert torch.equal(ops.pvt_block(*args, *mlp, 8, 1), first[1])
 
 
 # Res2Net kernels vs their plain versions (testing.excess, base x or the

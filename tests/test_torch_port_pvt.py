@@ -37,6 +37,7 @@ from pranet2_tpu_torch.testing import excess
 from pranet2_tpu_torch.utils.convert import (load_jax_variables,
                                              state_dict_from_jax)
 from test_torch_port_pranet import random_variables
+import torch_pvt_faults
 
 SIZE, BATCH = 64, 2
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -166,12 +167,19 @@ def test_sra_attention_plain_matches_pallas_kernel(rng, interpret,
 
 
 @pytest.mark.parametrize("fault", ["dw_bias_dropped", "pad_before_bias",
-                                   "q_bias_dropped"])
+                                   "q_bias_dropped",
+                                   *torch_pvt_faults.ATTN_FAULTS])
 def test_kernel_checks_reject_planted_faults(rng, interpret, fault):
     """bf16: the Pallas kernel bodies are held to the port's plain version,
     and not to one with a fault planted in the kernel's part, whose effect
     is small beside the residual."""
-    if fault == "q_bias_dropped":
+    if fault in torch_pvt_faults.ATTN_FAULTS:
+        jargs, targs = _sra_case(rng, "bf16")
+        want = jattn.fused_sra_attention(*jargs, 1e-6)
+        got = pvt_attn.sra_attention(*targs, 1e-6)
+        bad = torch_pvt_faults.sra_attention(fault, *targs, 1e-6)
+        base = targs[0]
+    elif fault == "q_bias_dropped":
         jargs, targs = _sra_case(rng, "bf16")
         want = jattn.fused_sra_attention(*jargs, 1e-6)
         got = pvt_attn.sra_attention(*targs, 1e-6)

@@ -15,6 +15,11 @@ check rejects them.  Imports no JAX, so the card tests use it too.
   else 4, the most rows a tile takes);
 * ``dw_taps_transposed``: the depthwise taps read w[dj, di]
   (``depthwise_conv3x3``);
+* ``heads_rotated``: the projection reading head (h + 1) mod nh's output
+  in place of head h's, a head exchange between blocks gone wrong
+  (``sra_attention``);
+* ``kv_pad_in_softmax``: K/V zero-padded to a multiple of 32 keys, the
+  padded scores kept in the max and the sum (``sra_attention``);
 * ``stats_unrounded``: the (mu, rstd) of the MLP's output taken before its
   rounding to x's type (``mlp_block``, stats mode);
 * ``final_ln_rounded``: the output rounded to x's type before the stage
@@ -31,10 +36,45 @@ from pranet2_tpu_torch.ops.pvt_mlp import (gelu_poly, layer_norm_f32,
                                            ln_stats, mlp_block_plain,
                                            mlp_tile)
 
+ATTN_FAULTS = ("heads_rotated", "kv_pad_in_softmax")
 SRA_FAULTS = ("sr_window_transposed", "kv_ln_dropped", "kv_patch_row_dropped")
 BLOCK_FAULTS = ("mlp_residual_from_x", "mlp_tile_halo_dropped")
 MLP_FAULTS = ("stats_unrounded", "final_ln_rounded")
 FAULTS = (*SRA_FAULTS, *BLOCK_FAULTS, "dw_taps_transposed")
+
+
+def attend(fault, x, yb, wq, bq, kv, wp, bp, num_heads, exact_residual):
+    """``attend_plain`` with ``fault`` (one of ``ATTN_FAULTS``) planted."""
+    dt = x.dtype
+    n, h, w, d = x.shape
+    hd = d // num_heads
+    q = (yb.reshape(n, h * w, d).float() @ wq.float().t()
+         + bq.float()) * (1.0 / hd ** 0.5)
+    heads = lambda t: t.reshape(n, -1, num_heads, hd).transpose(1, 2)
+    if fault == "kv_pad_in_softmax":
+        kv = F.pad(kv, (0, 0, 0, -kv.shape[1] % 32))
+    q = heads(q.to(dt)).float()
+    k, v = (heads(t).float() for t in kv.split(d, dim=-1))
+    s = q @ k.transpose(-1, -2)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = (p.to(dt).float() @ v) / p.sum(-1, keepdim=True)
+    if fault == "heads_rotated":
+        o = o.roll(-1, dims=1)
+    else:
+        assert fault == "kv_pad_in_softmax"
+    o = o.transpose(1, 2).reshape(n, h * w, d).to(dt)
+    out = (o.float() @ wp.float().t() + bp.float()).reshape(n, h, w, d)
+    if exact_residual:
+        return (x.float() + out).to(dt)
+    return x + out.to(dt)
+
+
+def sra_attention(fault, x, norm_w, norm_b, wq, bq, kv, wp, bp, num_heads,
+                  eps=1e-6):
+    """``sra_attention_plain`` with ``fault`` (one of ``ATTN_FAULTS``)
+    planted in its attention."""
+    return attend(fault, x, ln1_plain(x, norm_w, norm_b, eps), wq, bq, kv,
+                  wp, bp, num_heads, False)
 
 
 def sra_block(fault, x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b,
