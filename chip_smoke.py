@@ -9,11 +9,14 @@
    serving paths give it, and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (CUDA events, median);
    for the PVT and Res2Net kernels, which no single call computes, it times
-   the eager chain of PyTorch calls instead (``library_chain_ms``); the
-   whole-half and whole-block kernels' launches are also timed apart, with
-   their grids, from a device trace (``launch_profile``).  The
-   depthwise 3x3, which no model calls, is checked at PVTv2-b2's hidden
-   shapes.
+   the eager chain of PyTorch calls instead (``library_chain_ms``), for
+   the stem tail (``stem_pool``) and the decoder level (``dsra_level``)
+   the ATen chain each replaced; the whole-half and whole-block kernels'
+   launches are also timed apart, with their grids, from a device trace
+   (``launch_profile``).  The depthwise 3x3, which no model calls, is
+   checked at PVTv2-b2's hidden shapes; the standalone gate and the bare
+   maxpool, which the served forwards no longer call, at the shapes they
+   had.
 3. Serves five paths of the port (full width and depth, random weights
    from a seed), in bf16 at 352x352, batch 16: PraNet-V2 on Res2Net-50, the
    same with its fused Res2Net blocks (``fused=True, tailfuse=True``), and
@@ -23,10 +26,12 @@
    over seeded synthetic images, with the kernels' launch counters set to 0
    just before and read just after; times the forward alone (CUDA events),
    its device time by kernel (torch.profiler) and the host stages of one
-   batch; then checks the bf16 logits against a float32 forward of the
-   same weights through the module chain (no kernel of the fused path),
-   and the GPU's float32 forward against the CPU's (plain versions) on a
-   small input.
+   batch, and finds in a CPU-side trace none of the ATen ops the stem and
+   decoder kernels replaced (``replaced_ops``); then checks the bf16
+   logits against a float32 forward of the same weights (the module chain
+   but for the stem and decoder kernels: no kernel of the fused or PVT
+   paths), and the GPU's float32 forward against the CPU's (plain
+   versions) on a small input.
 4. Prints one JSON line of kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -119,7 +124,9 @@ def bound_ms(nbytes: int, ops: int, mma_ops: int = 0,
 
 
 # the hand kernels' launches by name in a device trace
-LAUNCH_LABELS = {"patch_kernel": "kv_patch", "finish_kernel": "kv_finish",
+LAUNCH_LABELS = {"stem_pool_kernel": "stem_pool",
+                 "dsra_level_kernel": "dsra_level",
+                 "patch_kernel": "kv_patch", "finish_kernel": "kv_finish",
                  "attend_kernel": "attention", "mlp_kernel": "mlp",
                  "prep_kernel": "prep", "conv1x1_kernel": "conv1x1",
                  "conv3x3_kernel": "conv3x3",
@@ -227,42 +234,176 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def check_maxpool(torch, dev) -> dict:
+def check_maxpool(torch, dev) -> list:
+    """Row 1: ``stem_pool`` (bn1 + ReLU + the pool, the Res2Net paths'
+    launch) and the bare ``max_pool3x3s2``, at the stem's serving shape,
+    each bit for bit against its plain version.  ``stem_pool``'s library
+    chain is what ATen ran before it, ``bn1`` (``F.batch_norm``), ReLU and
+    ``F.max_pool2d``; each of those passes is timed apart too."""
     import torch.nn.functional as F
 
     from pranet2_tpu_torch.ops import stem
 
     g = torch.Generator(device=dev).manual_seed(0)
-    # the stem's post-BN+ReLU conv3 output
-    x = torch.relu(torch.randn((BATCH, 64, SIZE // 2, SIZE // 2), generator=g,
-                               device=dev)).to(torch.bfloat16)
-    got = stem.max_pool3x3s2(x)
-    want = stem.max_pool3x3s2_plain(x)
+    shape = (BATCH, 64, SIZE // 2, SIZE // 2)
+    # the stem's raw conv3 output, and bn1's four vectors (float32)
+    z = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    c = shape[1]
+    w, b, mean = (torch.randn(c, generator=g, device=dev) * sc + sh
+                  for sc, sh in ((0.1, 1.0), (0.1, 0.0), (0.1, 0.0)))
+    var = 0.5 + torch.rand(c, generator=g, device=dev)
+    bn = (w, b, mean, var)
+    got = stem.stem_pool(z, *bn, 1e-5)
+    want = stem.stem_pool_plain(z, *bn, 1e-5)
+    x = torch.relu(torch.randn(shape, generator=g, device=dev)).to(
+        torch.bfloat16)
+    got_pool, want_pool = stem.max_pool3x3s2(x), stem.max_pool3x3s2_plain(x)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
+        raise AssertionError("stem_pool kernel differs from its plain version")
+    if not torch.equal(got_pool, want_pool):
         raise AssertionError("maxpool kernel differs from its plain version")
-    err = (got.float() - want.float()).abs().max().item()
-    b, by = bound_ms(x.numel() * x.element_size()
-                     + got.numel() * got.element_size(), 8 * got.numel())
-    return {"name": "max_pool3x3s2", "route": "cuda",
-            "source": "pranet2_tpu_torch/csrc/maxpool.cu",
-            "replaces": "pranet2_tpu/ops/stem.py:106",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: stem.max_pool3x3s2(x)),
-            "plain_ms": time_ms(lambda: stem.max_pool3x3s2_plain(x)),
-            "bound_ms": b, "bound_by": by,
-            "library_ms": time_ms(lambda: F.max_pool2d(x, 3, 2, 1)),
-            "shapes": [{"shape": list(x.shape), "dtype": "bfloat16"}]}
+    # per input element the BN's product and sum and the ReLU; per output
+    # eight compares
+    b_stem, by_stem = bound_ms(nbytes(z, got, *bn),
+                               3 * z.numel() + 8 * got.numel())
+    b_pool, by_pool = bound_ms(nbytes(x, got_pool), 8 * got_pool.numel())
+    bn_pass = lambda: F.batch_norm(z, mean, var, w, b, False, 0.0, 1e-5)
+    y = torch.relu(bn_pass())
+    chain = lambda: F.max_pool2d(torch.relu(bn_pass()), 3, 2, 1)
+    kernel = lambda: stem.stem_pool(z, *bn, 1e-5)
+    stem_row = {
+        "name": "stem_pool", "route": "cuda",
+        "source": "pranet2_tpu_torch/csrc/maxpool.cu",
+        "replaces": "pranet2_tpu/ops/stem.py:106",
+        "max_abs_err": (got.float() - want.float()).abs().max().item(),
+        "ms": time_ms(kernel), "device_ms": kernel_ms(torch, kernel),
+        "host_ms": host_ms(torch, kernel),
+        "plain_ms": time_ms(lambda: stem.stem_pool_plain(z, *bn, 1e-5)),
+        "bound_ms": b_stem, "bound_by": by_stem, "library_ms": None,
+        "library_chain_ms": time_ms(chain),
+        "library_chain_device_ms": kernel_ms(torch, chain),
+        "bn_pass_device_ms": kernel_ms(torch, bn_pass),
+        "relu_pass_device_ms": kernel_ms(torch, lambda: torch.relu(y)),
+        "launches_by_kernel": _one_launch(torch, kernel, "stem_pool",
+                                          "stem_pool"),
+        "shapes": [{"shape": list(shape), "dtype": "bfloat16"}]}
+    pool = lambda: stem.max_pool3x3s2(x)
+    library = lambda: F.max_pool2d(x, 3, 2, 1)
+    pool_row = {
+        "name": "max_pool3x3s2", "route": "cuda",
+        "source": "pranet2_tpu_torch/csrc/maxpool.cu",
+        "replaces": "pranet2_tpu/ops/stem.py:106",
+        "max_abs_err": (got_pool.float()
+                        - want_pool.float()).abs().max().item(),
+        "ms": time_ms(pool),
+        "device_ms": kernel_ms(torch, pool),
+        "host_ms": host_ms(torch, pool),
+        "plain_ms": time_ms(lambda: stem.max_pool3x3s2_plain(x)),
+        "bound_ms": b_pool, "bound_by": by_pool,
+        "library_ms": time_ms(library),
+        "library_device_ms": kernel_ms(torch, library),
+        "shapes": [{"shape": list(x.shape), "dtype": "bfloat16"}]}
+    print(f"stem_pool: ms {stem_row['ms']:.4f}, device "
+          f"{stem_row['device_ms']:.4f}, host {stem_row['host_ms']:.4f}, "
+          f"chain {stem_row['library_chain_ms']:.4f} (device "
+          f"{stem_row['library_chain_device_ms']:.4f}: bn "
+          f"{stem_row['bn_pass_device_ms']:.4f}, relu "
+          f"{stem_row['relu_pass_device_ms']:.4f}), bound {b_stem:.4f}; "
+          f"max_pool3x3s2 device {pool_row['device_ms']:.4f}, F.max_pool2d "
+          f"device {pool_row['library_device_ms']:.4f}")
+    return [stem_row, pool_row]
 
 
-def check_gate(torch, dev) -> dict:
+def check_gate(torch, dev) -> list:
+    """Row 2: ``dsra_level`` at PraNet-V2's three levels (16 images, one
+    channel, bf16, maps at 352 x 352; level 4 emits map5's two maps) and two
+    four-channel cases, against ``dsra_level_plain``
+    (``testing.level_excess``); its library chain is the chain it replaced
+    (four or six ``resize_bilinear`` calls and ``dsra_gate``).  Then the
+    standalone gate ``dsra_gate`` at the levels' shapes, against
+    ``dsra_gate_plain``."""
     from pranet2_tpu_torch.ops import dsra
+    from pranet2_tpu_torch.ops.resize import resize_bilinear
+    from pranet2_tpu_torch.testing import level_excess
 
     g = torch.Generator(device=dev).manual_seed(1)
+    out = (SIZE, SIZE)
+    # (prev side, branch side, emit_prev, channels, type, on the main path)
+    cases = [(44, 11, True, 1, torch.bfloat16, True),
+             (11, 22, False, 1, torch.bfloat16, True),
+             (22, 44, False, 1, torch.bfloat16, True),
+             (22, 44, False, 4, torch.float32, False),
+             (22, 44, False, 4, torch.bfloat16, False)]
+    rows = []
+    for prev, ra, emit, c, dt, main in cases:
+        ts = [torch.randn((BATCH, c, s, s), generator=g, device=dev).to(dt)
+              for s in (prev, prev, ra, ra)]
+        got = dsra.dsra_level(*ts, out, True, emit)
+        want = dsra.dsra_level_plain(*ts, out, True, emit)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        over = level_excess(got, want, out, GATE_TOL[name])
+        if not over <= 1:
+            raise AssertionError(f"dsra_level at {prev} -> {ra} C {c} {name}:"
+                                 f" {over:.3g} times the tolerance")
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        # per output pixel the four taps' weights and sums (7 flops); per
+        # gated pixel two crops (14), the difference, the softmax and the
+        # gate (12)
+        b, by = bound_ms(nbytes(*ts, *got),
+                         7 * sum(t.numel() for t in got[1:])
+                         + 26 * got[0].numel())
+        kernel = lambda: dsra.dsra_level(*ts, out, True, emit)
+
+        def chain():
+            size = tuple(ts[2].shape[-2:])
+            gated = dsra.dsra_gate(ts[2], resize_bilinear(ts[0], size),
+                                   resize_bilinear(ts[1], size), True)
+            full = (gated, ts[3], ts[0], ts[1]) if emit else (gated, ts[3])
+            return [resize_bilinear(t, out) for t in full]
+
+        row = {"prev": prev, "branch": ra, "emit_prev": emit, "channels": c,
+               "dtype": name, "main_path": main, "calls_per_forward": 1,
+               "max_abs_err": err, "excess": over, "ms": time_ms(kernel),
+               "device_ms": kernel_ms(torch, kernel),
+               "host_ms": host_ms(torch, kernel),
+               "plain_ms": time_ms(lambda: dsra.dsra_level_plain(
+                   *ts, out, True, emit)),
+               "bound_ms": b, "bound_by": by,
+               "library_chain_ms": time_ms(chain),
+               "library_chain_device_ms": kernel_ms(torch, chain),
+               "library_chain_host_ms": host_ms(torch, chain)}
+        if main:
+            row["launches_by_kernel"] = _one_launch(
+                torch, kernel, "dsra_level", f"dsra_level {prev} -> {ra}")
+        print(f"dsra_level {prev} -> {ra} C {c} {name}: ms {row['ms']:.4f}, "
+              f"device {row['device_ms']:.4f}, host {row['host_ms']:.4f}, "
+              f"chain {row['library_chain_ms']:.4f} (device "
+              f"{row['library_chain_device_ms']:.4f}, host "
+              f"{row['library_chain_host_ms']:.4f}), bound {b:.5f}, "
+              f"excess {over:.3f}")
+        rows.append(row)
+    level = _summary("dsra_level", "pranet2_tpu_torch/csrc/dsra.cu",
+                     "pranet2_tpu/ops/dsra.py:71", rows)
+    level["host_ms"] = sum(r["host_ms"] for r in rows if r["main_path"])
+    level["library_chain_host_ms"] = sum(r["library_chain_host_ms"]
+                                         for r in rows if r["main_path"])
+    return [level, _check_gate_alone(torch, dev, g)]
+
+
+def _check_gate_alone(torch, dev, g) -> dict:
+    """``dsra_gate`` at the three levels' shapes (bf16) and at four
+    channels, against ``dsra_gate_plain``; its times are the three
+    levels' sum."""
+    from pranet2_tpu_torch.ops import dsra
+
     cases = [((BATCH, 1, s, s), torch.bfloat16, True) for s in (44, 22, 11)]
     cases += [((BATCH, 4, 44, 44), dt, False)
               for dt in (torch.float32, torch.bfloat16)]
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
+             "host_ms": 0.0}
     shapes, worst, by = [], 0.0, "bytes"
     for shape, dt, main_path in cases:
         fg, cf, cb = (torch.randn(shape, generator=g, device=dev).to(dt)
@@ -279,9 +420,11 @@ def check_gate(torch, dev) -> dict:
         # per element: the difference, max, exp, sum and divide of the
         # softmax twice over, then fg * gate + fg
         b, by = bound_ms(4 * fg.numel() * fg.element_size(), 10 * fg.numel())
+        kernel = lambda: dsra.dsra_gate(fg, cf, cb, True)
         row = {"shape": list(shape), "dtype": name, "main_path": main_path,
                "max_abs_err": err.max().item(),
-               "ms": time_ms(lambda: dsra.dsra_gate(fg, cf, cb, True)),
+               "ms": time_ms(kernel), "device_ms": kernel_ms(torch, kernel),
+               "host_ms": host_ms(torch, kernel),
                "plain_ms": time_ms(
                    lambda: dsra.dsra_gate_plain(fg, cf, cb, True)),
                "bound_ms": b}
@@ -290,7 +433,6 @@ def check_gate(torch, dev) -> dict:
         if main_path:
             for k in total:
                 total[k] += row[k]
-    # the entry's times are one forward's worth: the three main-path shapes
     return {"name": "dsra_gate", "route": "cuda",
             "source": "pranet2_tpu_torch/csrc/dsra.cu",
             "replaces": "pranet2_tpu/ops/dsra.py:71",
@@ -972,17 +1114,19 @@ def synthetic_images(np, n: int) -> list:
 _NO_PVT = {"mlp_block": 0, "sra_attention": 0, "sra_block": 0,
            "pvt_block": 0}
 _NO_RES2 = {"fused_bottle2neck": 0, "fused_tail": 0}
-# no model calls the depthwise 3x3 (the JAX package only exports it)
-_PVT = {"max_pool3x3s2": 0, "dsra_gate": 3, **_NO_RES2,
-        "depthwise_conv3x3": 0}
+# no served forward calls the depthwise 3x3 (the JAX package only exports
+# it), the standalone gate or the bare maxpool (the chains that run while
+# autograd records take those two): every path's decoder runs three
+# dsra_level launches, and the Res2Net stem one stem_pool
+_TAIL = {"max_pool3x3s2": 0, "dsra_gate": 0, "dsra_level": 3,
+         "depthwise_conv3x3": 0}
+_PVT = {**_TAIL, "stem_pool": 0, **_NO_RES2}
 PATHS = {
-    "pranet_v2": ("pranet_v2", {}, {"max_pool3x3s2": 1, "dsra_gate": 3,
-                                    **_NO_RES2, **_NO_PVT,
-                                    "depthwise_conv3x3": 0}),
+    "pranet_v2": ("pranet_v2", {}, {**_TAIL, "stem_pool": 1, **_NO_RES2,
+                                    **_NO_PVT}),
     "pranet_v2_fused": ("pranet_v2", {"fused": True, "tailfuse": True},
-                        {"max_pool3x3s2": 1, "dsra_gate": 3,
-                         "fused_bottle2neck": 12, "fused_tail": 4,
-                         **_NO_PVT, "depthwise_conv3x3": 0}),
+                        {**_TAIL, "stem_pool": 1, "fused_bottle2neck": 12,
+                         "fused_tail": 4, **_NO_PVT}),
     "pvt_pranet_v2": ("pvt_pranet_v2", {}, {**_PVT, **_NO_PVT,
                                             "mlp_block": 16,
                                             "sra_attention": 16}),
@@ -1006,6 +1150,7 @@ def _wrappers():
     from pranet2_tpu_torch.ops.pvt_block import pvt_block
 
     return {"max_pool3x3s2": stem.max_pool3x3s2, "dsra_gate": dsra.dsra_gate,
+            "stem_pool": stem.stem_pool, "dsra_level": dsra.dsra_level,
             "fused_bottle2neck": res2_block.fused_bottle2neck,
             "fused_tail": res2_tail.fused_tail,
             "mlp_block": pvt_mlp.mlp_block,
@@ -1059,6 +1204,11 @@ def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
             fwd_ms = time_ms(lambda: pred.model(batch), reps=10, rounds=5)
             logits = sum(pred.model(batch)[:4]).float()
             device = device_time(torch, lambda: pred.model(batch))
+            replaced = replaced_ops(torch, lambda: pred.model(batch))
+        if replaced:
+            raise AssertionError(f"{label}: the forward still runs ops the "
+                                 f"stem and decoder kernels replaced: "
+                                 f"{replaced}")
         return {"model": label, "launches": counts, "mlp_modes": modes,
                 "forwards": forwards,
                 "stream_img_per_s": N_IMAGES / seconds,
@@ -1088,6 +1238,39 @@ def host_time(pred, chunk) -> dict:
             "postprocess_ms_per_batch": (t3 - t2) * 1e3}
 
 
+# ATen ops that stem_pool and dsra_level took over, by the shape of their
+# first input: bn1 and its ReLU on the stem's map, and any bilinear resize
+# or copy of the decoder's one-channel maps (the partial decoder's x2
+# upsamples take 32 channels)
+STEM_OPS = ("aten::batch_norm", "aten::relu", "aten::relu_",
+            "aten::clamp_min")
+TAIL_OPS = ("aten::upsample_bilinear2d", "aten::_to_copy")
+
+
+def replaced_ops(torch, fn) -> dict:
+    """Counts of the ATen ops of one forward (a CPU-side trace with input
+    shapes) that the stem and decoder kernels replaced; a served forward
+    must have none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    stem = [BATCH, 64, SIZE // 2, SIZE // 2]
+    found = {}
+    for e in prof.events():
+        first = list(e.input_shapes[0]) if e.input_shapes else []
+        if ((e.name in STEM_OPS and first == stem)
+                or (e.name in TAIL_OPS and len(first) == 4
+                    and first[1] == 1)):
+            key = f"{e.name} {first}"
+            found[key] = found.get(key, 0) + 1
+    return found
+
+
 def device_time(torch, fn, forwards: int = 5) -> dict:
     """Device time of one forward by kernel (torch.profiler), top ten.
 
@@ -1111,7 +1294,8 @@ def device_time(torch, fn, forwards: int = 5) -> dict:
     if not rows:
         return {"busy_ms": None, "ported_kernels_ms": None, "top": []}
     ported = sum(ms for k, ms in rows if any(
-        n in k for n in ("maxpool3x3s2", "dsra_gate", "attend_kernel",
+        n in k for n in ("stem_pool_kernel", "dsra_gate", "dsra_level",
+                         "attend_kernel",
                          "patch_kernel", "finish_kernel", "mlp_kernel",
                          "dw3x3_kernel", "prep_kernel", "conv1x1_kernel",
                          "conv3x3_kernel", "split_reduce_kernel",
@@ -1189,7 +1373,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    kernels = [check_maxpool(torch, dev), check_gate(torch, dev),
+    kernels = [*check_maxpool(torch, dev), *check_gate(torch, dev),
                check_res2_tail(torch, dev), check_bottle2neck(torch, dev),
                check_pvt_mlp(torch, dev), check_sra_attention(torch, dev),
                check_sra_block(torch, dev), check_pvt_block(torch, dev),

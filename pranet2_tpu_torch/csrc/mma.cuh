@@ -63,6 +63,28 @@ __device__ __forceinline__ void cp_tile(T* s, int sld, const T* g, long long gld
   }
 }
 
+// n > 0 contiguous elements of T at global g, of any alignment, to shared
+// memory: the 16-byte granules of global memory that hold them are copied
+// to s (16-byte aligned) by cp.async, so g[i] lands at s[off + i], off (the
+// return value) g's offset in its granule in elements.  The granules lie
+// inside g's allocation (cudaMalloc gives whole 16-byte granules), and
+// span_bytes(n) bytes at s take them.  Every thread of the block calls it;
+// commit, wait and __syncthreads before reading.
+template <typename T>
+__device__ __forceinline__ int cp_span(T* s, const T* g, long long n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  const uintptr_t lo = a & ~uintptr_t(15);
+  const long long chunks = (long long)((a + n * sizeof(T) + 15 - lo) / 16);
+  for (long long i = threadIdx.x; i < chunks; i += blockDim.x)
+    cp16(reinterpret_cast<char*>(s) + 16 * i, reinterpret_cast<const char*>(lo + 16 * i), true);
+  return (int)((a - lo) / sizeof(T));
+}
+
+template <typename T>
+__host__ __device__ constexpr long long span_bytes(long long n) {
+  return (n * (long long)sizeof(T) + 15) / 16 * 16 + 16;
+}
+
 template <typename T, int MT, int NT>
 struct Acc {
   float v[MT][NT][4];

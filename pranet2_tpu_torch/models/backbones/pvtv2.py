@@ -20,16 +20,17 @@ attribute names (``patch_embed{1-4}.{proj,norm}``,
 Routing follows the JAX package's, decided by the compute dtype (the patch
 embed's weight type), not by the device:
 
-* bfloat16 in eval: each block's attention half goes through
-  ``ops.pvt_attn.sra_attention`` with the K/V path in plain PyTorch, and its
-  MLP half through ``ops.pvt_mlp.mlp_block``: "stats" mode in the non-last
+* bfloat16 in eval with autograd off: each block's attention half goes
+  through ``ops.pvt_attn.sra_attention`` with the K/V path in plain
+  PyTorch, and its MLP half through ``ops.pvt_mlp.mlp_block``: "stats" mode in the non-last
   blocks of a stage, whose (mu, rstd) feed the next block's K/V-path LN1,
   and "final_ln" mode in the last block, which applies ``norm{s}`` in its
   epilogue (``pranet2_tpu/models/backbones/pvtv2.py:263-312,380-403,
   495-526``).
-* otherwise (float32, or training in any type): the module chain, with
-  exact-erf GELU and plain softmax attention.  The kernels are forward
-  only, and JAX trains on the chain too (``pvtv2.py:445-464``).
+* otherwise (float32, or training or autograd recording in any type):
+  the module chain, with exact-erf GELU and plain softmax attention.  The
+  kernels are forward only, and JAX trains on the chain too
+  (``pvtv2.py:445-464``).
 
 Two options select the JAX package's opt-in PVT kernels, in bfloat16:
 
@@ -39,10 +40,11 @@ Two options select the JAX package's opt-in PVT kernels, in bfloat16:
   its blocks take no LN1 statistics, so their MLPs run in "plain" mode
   (the last one in "final_ln").  "auto:N" takes v2 for the stages with
   sr <= N (N is 1 when left out), v1 for the others.
-* ``blockfuse``: in eval, every block through ``ops.pvt_block.pvt_block``,
-  both halves in one call, and the stage LayerNorm on its own (the JAX
-  package's ``PRANET2_FUSED=blockfuse`` or ``PVTv2(fused_block=True)``,
-  ``pvtv2.py:343-357,499-510``); it takes precedence over ``attn_impl``.
+* ``blockfuse``: in eval with autograd off, every block through
+  ``ops.pvt_block.pvt_block``, both halves in one call, and the stage
+  LayerNorm on its own (the JAX package's ``PRANET2_FUSED=blockfuse`` or
+  ``PVTv2(fused_block=True)``, ``pvtv2.py:343-357,499-510``); it takes
+  precedence over ``attn_impl``.
 
 ``stage_route`` holds the whole rule.  The parameters and the ``state_dict``
 are the same on every route.
@@ -94,14 +96,15 @@ def stage_attn_impl(attn_impl: str, sr: int) -> str:
     return attn_impl
 
 
-def stage_route(kernels: bool, training: bool, attn_impl: str,
+def stage_route(kernels: bool, training: bool, grad: bool, attn_impl: str,
                 blockfuse: bool, sr: int) -> str:
     """How the blocks of a stage run: "chain" (the module chain: no
-    kernels, as in float32 and in training, where the kernels have no
-    backward and JAX trains on the chain too), "block" (``pvt_block`` per
-    block, then the stage LN: ``blockfuse``), else the attention kernel
-    "v1" or "v2" with ``mlp_block``."""
-    if not kernels or training:
+    kernels, as in float32, and in training or wherever autograd records
+    (``grad``), since the kernels have no backward and JAX trains on the
+    chain too), "block" (``pvt_block`` per block, then the stage LN:
+    ``blockfuse``), else the attention kernel "v1" or "v2" with
+    ``mlp_block``."""
+    if not kernels or training or grad:
         return "chain"
     if blockfuse:
         return "block"
@@ -275,7 +278,8 @@ class PVTv2(nn.Module):
         for s in range(1, 5):
             x = getattr(self, f"patch_embed{s}")(x)
             blocks, norm = getattr(self, f"block{s}"), getattr(self, f"norm{s}")
-            route = stage_route(kernels, self.training, self.attn_impl,
+            route = stage_route(kernels, self.training,
+                                torch.is_grad_enabled(), self.attn_impl,
                                 self.blockfuse, SR_RATIOS[s - 1])
             if route in ("chain", "block"):
                 for blk in blocks:

@@ -3,8 +3,8 @@
 Port of the plain module path of ``pranet2_tpu/models/backbones/res2net.py``,
 with the reference's attribute names (``conv1.0``, ``layer1.0.convs.0``,
 ``layer2.0.downsample.1``, ...), and of its two opt-in kernel branches
-(eval only, BatchNorms folded from their running statistics at each
-forward):
+(eval with autograd off only, BatchNorms folded from their running
+statistics at each forward):
 
 * ``fused``: a whole stride-1 'normal' Bottle2neck in one call of
   ``ops.res2_block.fused_bottle2neck`` (the JAX ``res2block`` component, or
@@ -22,12 +22,18 @@ branches are TPU restructures of the same arithmetic and are left out.
   passes through ('normal') or is 3x3/stride avg-pooled ('stage'); concat,
   1x1 project, residual add, ReLU.  width = floor(planes*26/64), scale = 4.
 * Deep stem: three 3x3 convs (3->32->32->64, the first stride 2) with
-  BN+ReLU, then the 3x3/2 maxpool: in eval the kernel
-  (``ops.stem.max_pool3x3s2``), in training the plain ``ops.max_pool``,
-  which has a gradient (JAX's module path pools the same way,
-  ``pranet2_tpu/models/backbones/res2net.py:350``).
+  BN+ReLU, then the 3x3/2 maxpool: in eval with autograd off bn1, its
+  ReLU and the pool in one kernel (``ops.stem.stem_pool``, as the JAX
+  package folds bn1 into its bf16 stem), otherwise ``bn1``, ReLU and the
+  plain ``ops.max_pool``, which have a gradient (JAX's module path pools
+  the same way, ``pranet2_tpu/models/backbones/res2net.py:350``).
 * Downsample shortcut: stride x stride avg-pool (ceil mode,
   ``count_include_pad=False``), then 1x1 conv + BN.
+
+Every kernel is forward only, so each kernel site takes its module chain
+whenever ``self.training or torch.is_grad_enabled()``: an eval forward
+with autograd on (fine-tuning with frozen BatchNorm, saliency maps) gets
+its gradients, and serving (``torch.inference_mode``) the kernels.
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ import math
 import torch
 from torch import nn
 
-from pranet2_tpu_torch.ops import (avg_pool, max_pool, max_pool3x3s2,
-                                   res2_block, res2_tail)
+from pranet2_tpu_torch.ops import (avg_pool, max_pool, res2_block,
+                                   res2_tail, stem_pool)
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -103,7 +109,8 @@ class Bottle2neck(nn.Module):
                 self.conv3.weight.view(cout, c4), *_fold(self.bn3))
 
     def forward(self, x):
-        if (self.fused and not self.training and self.stype == "normal"
+        kernels = not (self.training or torch.is_grad_enabled())
+        if (self.fused and kernels and self.stype == "normal"
                 and self.stride == 1 and self.downsample is None
                 and self.scale == res2_block.SCALE):
             return res2_block.fused_bottle2neck(x, *self.fused_args())
@@ -123,8 +130,7 @@ class Bottle2neck(nn.Module):
         out = torch.cat(parts, 1)
         short = x if self.downsample is None else self.downsample(x)
         w3 = self.conv3.weight
-        if (self.tailfuse and not self.training
-                and w3.dtype == torch.bfloat16):
+        if self.tailfuse and kernels and w3.dtype == torch.bfloat16:
             return res2_tail.fused_tail(out, short, w3.view(w3.shape[0], -1),
                                         *_fold(self.bn3))
         return torch.relu(self.bn3(self.conv3(out)) + short)
@@ -168,8 +174,13 @@ class Res2Net(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*seq))
 
     def forward(self, x):
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = max_pool(x, 3, 2, 1) if self.training else max_pool3x3s2(x)
+        z = self.conv1(x)
+        if self.training or torch.is_grad_enabled():
+            x = max_pool(torch.relu(self.bn1(z)), 3, 2, 1)
+        else:
+            bn = self.bn1
+            x = stem_pool(z, bn.weight, bn.bias, bn.running_mean,
+                          bn.running_var, bn.eps)
         x1 = self.layer1(x)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)

@@ -8,9 +8,13 @@ attribute names: ``backbone.*``, ``rfb{2,3,4}_1``, ``agg1``,
 Encoder stages 2-4 -> three RFBs (32 ch) -> dual-head partial decoder ->
 coarse fg/bg maps at 1/8 scale.  Each DSRA branch runs its conv trunk on the
 raw stage, emits fg/bg heads and gates fg with
-``fg + fg * softmax_c(crop_fg - crop_bg)`` through ``ops.dsra_gate`` (the
-kernel, on a CUDA tensor).  Returns 8 maps at input resolution, fine-first:
-(map2_fg, map3_fg, map4_fg, map5_fg, map2_bg, map3_bg, map4_bg, map5_bg).
+``fg + fg * softmax_c(crop_fg - crop_bg)``, crop_* the previous level's maps
+resized to the branch's size.  Returns 8 maps at input resolution,
+fine-first: (map2_fg, map3_fg, map4_fg, map5_fg, map2_bg, map3_bg, map4_bg,
+map5_bg).  In eval with autograd off each level (crops, gate and its maps
+at input resolution; level 4 also map5's) is one call of ``ops.dsra_level``,
+the kernel on a CUDA tensor; otherwise ``ops.dsra_level_plain``, the chain
+of ``resize_bilinear`` and ``ops.dsra_gate``, which has a gradient.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from pranet2_tpu_torch.models.backbones.pvtv2 import pvt_v2
 from pranet2_tpu_torch.models.backbones.res2net import Res2Net
 from pranet2_tpu_torch.models.registry import register_model
 from pranet2_tpu_torch.nn import RFB, ConvBN, PartialDecoder
-from pranet2_tpu_torch.ops import dsra_gate, resize_bilinear
+from pranet2_tpu_torch.ops import dsra_gate, dsra_level, dsra_level_plain
 
 # level -> (trunk width, trunk convs, trunk kernel, head kernel,
 #           head index in the torch names)
@@ -85,18 +89,24 @@ class PraNetV2(nn.Module):
         _, x2, x3, x4 = self.backbone(x)
         ra5_fg, ra5_bg = self.agg1(self.rfb4_1(x4), self.rfb3_1(x3),
                                    self.rfb2_1(x2))
-        fg_maps = [resize_bilinear(ra5_fg, (h, w))]
-        bg_maps = [resize_bilinear(ra5_bg, (h, w))]
+        # the kernel is forward only: the chain, with the gate's Function,
+        # wherever autograd records
+        kernels = not (self.training or torch.is_grad_enabled())
+        fg_maps, bg_maps = [], []
         prev_fg, prev_bg = ra5_fg, ra5_bg
         for lvl, stage in ((4, x4), (3, x3), (2, x2)):
-            size = tuple(stage.shape[-2:])
-            crop_fg = resize_bilinear(prev_fg, size)
-            crop_bg = resize_bilinear(prev_bg, size)
             ra_fg, ra_bg = self._dsra_branch(lvl, stage)
-            ra_fg = dsra_gate(ra_fg, crop_fg, crop_bg, self.use_softmax)
-            fg_maps.insert(0, resize_bilinear(ra_fg, (h, w)))
-            bg_maps.insert(0, resize_bilinear(ra_bg, (h, w)))
-            prev_fg, prev_bg = ra_fg, ra_bg
+            args = (prev_fg, prev_bg, ra_fg, ra_bg, (h, w), self.use_softmax,
+                    lvl == 4)
+            gated, map_fg, map_bg, *map5 = (
+                dsra_level(*args) if kernels
+                else dsra_level_plain(*args, gate=dsra_gate))
+            fg_maps.insert(0, map_fg)
+            bg_maps.insert(0, map_bg)
+            if map5:
+                fg_maps.append(map5[0])
+                bg_maps.append(map5[1])
+            prev_fg, prev_bg = gated, ra_bg
         return (*fg_maps, *bg_maps)
 
 

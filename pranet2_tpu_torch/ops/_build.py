@@ -101,6 +101,24 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: kernel launch failed, cudaError_t {err}")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd records and a tensor argument requires grad.
+
+    A forward-only kernel's output, filled through ctypes, has no grad_fn:
+    a backward through it would leave every parameter before it without a
+    gradient and raise nothing.  The models take their module chains
+    whenever ``self.training or torch.is_grad_enabled()``; this catches a
+    direct call.  ``None`` arguments are skipped."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel is forward-only and would drop the "
+            "gradient of an input that requires grad; call it under "
+            "torch.no_grad() or torch.inference_mode(), or run the module "
+            "chain (the models do so in .train() and whenever grad is "
+            "enabled)")
+
+
 # PyTorch's raw-handle query, a fraction of the host cost of
 # torch.cuda.current_stream (no Stream object); absent from CPU builds.
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)

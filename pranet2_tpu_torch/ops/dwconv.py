@@ -72,6 +72,7 @@ def depthwise_conv3x3(x, w):
     n, h, wd, c = x.shape
     if n * h >= 2 ** 31:
         raise ValueError("depthwise_conv3x3: N*H must be below 2^31")
+    _build.refuse_grad("depthwise_conv3x3", x, w)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out

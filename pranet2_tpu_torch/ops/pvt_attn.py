@@ -234,6 +234,8 @@ def sra_attention(x, norm_w, norm_b, wq, bq, kv, wp, bp, num_heads: int,
     check_heads("sra_attention", d, num_heads)
     check_aligned("sra_attention", x=x, norm_w=norm_w, norm_b=norm_b, wq=wq,
                   bq=bq, kv=kv, wp=wp, bp=bp)
+    _build.refuse_grad("sra_attention", x, norm_w, norm_b, wq, bq, kv, wp,
+                       bp)
     if x.numel() == 0:
         return torch.empty_like(x)
     out = _launch_attention(x, norm_w, norm_b, wq, bq, kv, wp, bp, num_heads,
@@ -316,6 +318,7 @@ def sra_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
     if x.device.type != "cuda":
         raise ValueError(f"sra_block: unsupported device {x.device}")
     check_sra_block_args("sra_block", *args)
+    _build.refuse_grad("sra_block", *args[:13])
     if x.numel() == 0:
         return torch.empty_like(x)
     sr_wt = sr_weight(sr_w).contiguous() if sr > 1 else None

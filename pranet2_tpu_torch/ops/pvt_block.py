@@ -88,6 +88,7 @@ def pvt_block(x, norm_w, norm_b, wq, bq, sr_w, sr_b, kvn_w, kvn_b, wkv, bkv,
         raise ValueError(f"pvt_block: C ({c}) must be a multiple of 32 and "
                          "N*H below 2^31")
     check_aligned("pvt_block", w1=w1, w2=w2, b1=b1, dw_w=dw_w, dw_b=dw_b)
+    _build.refuse_grad("pvt_block", *attn, *mlp)
     if x.numel() == 0:
         return torch.empty_like(x)
     sr_wt = sr_weight(sr_w).contiguous() if sr > 1 else None

@@ -209,6 +209,8 @@ def mlp_block(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2,
     if x.device.type != "cuda":
         raise ValueError(f"mlp_block: unsupported device {x.device}")
     _check(x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2, b2, final_ln)
+    _build.refuse_grad("mlp_block", x, norm_w, norm_b, w1, b1, dw_w, dw_b, w2,
+                       b2, *(final_ln or ()))
     mode = ("final_ln" if final_ln is not None
             else "stats" if stats_eps is not None else "plain")
     n, h, w, d = x.shape

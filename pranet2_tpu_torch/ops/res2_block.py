@@ -112,6 +112,8 @@ def fused_bottle2neck(x, w1, s1, t1, wd, sd, td, w3, s3, t3):
     if x.dtype == torch.bfloat16 and c % 8:
         raise ValueError(f"fused_bottle2neck: bfloat16 takes C ({c}) a "
                          "multiple of 8")
+    _build.refuse_grad("fused_bottle2neck", x, w1, s1, t1, wd, sd, td, w3, s3,
+                       t3)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out

@@ -117,6 +117,7 @@ def fused_tail(cc, short, w3, s3, t3):
     if cc.dtype == torch.bfloat16 and (cin % 8 or cout % 2):
         raise ValueError(f"fused_tail: bfloat16 takes Cin ({cin}) a multiple "
                          f"of 8 and Cout ({cout}) even")
+    _build.refuse_grad("fused_tail", cc, short, w3, s3, t3)
     out = torch.empty_like(short)
     if out.numel() == 0:
         return out

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from pranet2_tpu_torch.ops.resize import resize_bilinear
+
 
 def step(t: torch.Tensor) -> torch.Tensor:
     """Float32 gap between each element of ``t`` and the next value of
@@ -36,6 +38,30 @@ def excess(got: torch.Tensor, want: torch.Tensor,
     scale = (w if base is None else w - base.float()).abs().max()
     allowed = tol * scale + (step(want) + step(got)) / 2
     return ((g - w).abs() / allowed).max().item()
+
+
+# dsra_level's full-size maps: a one-ulp move of a float32 source
+# coordinate can take a tap's weight from one neighbour to the next at
+# ratios that are not powers of two, so a map may move by that much of its
+# largest |value| beyond its own rounding
+LEVEL_MAP_TOL = 1e-5
+
+
+def level_excess(got, want, out_size, gate_tol: float) -> float:
+    """``dsra_level``'s outputs (gated, then the full-size maps) against
+    ``dsra_level_plain``'s on the same inputs; at most 1 means held.
+
+    gated is held as the gate is, |got - want| <= gate_tol * (1 + |want|)
+    (the softmax's exp and sum may move a rounding).  Each map is held by
+    ``excess`` with ``LEVEL_MAP_TOL`` (its own rounding either way, and the
+    coordinate's); the map of gated against the resize of the kernel's own
+    gated, so that a step the gate took is not counted twice."""
+    g0, w0 = got[0].float(), want[0].float()
+    over = ((g0 - w0).abs() / (gate_tol * (1 + w0.abs()))).max().item()
+    refs = (resize_bilinear(got[0], out_size), *want[2:])
+    for g, w in zip(got[1:], refs):
+        over = max(over, excess(g, w, None, LEVEL_MAP_TOL))
+    return over
 
 
 def random_bottle2neck(inplanes: int, planes: int, seed: int, device,

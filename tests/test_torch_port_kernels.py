@@ -17,7 +17,8 @@ from pranet2_tpu_torch.ops import (dsra, dwconv, pvt_attn, pvt_mlp,
                                    res2_block, res2_tail, stem)
 from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
 from pranet2_tpu_torch.ops.pvt_mlp import mlp_tile
-from pranet2_tpu_torch.testing import excess, random_bottle2neck
+from pranet2_tpu_torch.testing import (excess, level_excess,
+                                       random_bottle2neck)
 import torch_pvt_faults
 import torch_res2_faults
 
@@ -79,6 +80,181 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         ops.dsra_gate(x, x.half(), x)
     with pytest.raises(ValueError):
         ops.dsra_gate(x, x[:, :2], x[:, :2])
+
+
+# dsra_level: the three levels of PraNet-V2 at 352 x 352 and an odd size;
+# (prev side, branch side, output side, emit_prev)
+LEVELS = [(44, 11, 352, True), (11, 22, 352, False), (22, 44, 352, False),
+          (13, 27, 101, True)]
+GATE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_softmax", [True, False])
+@pytest.mark.parametrize("c", [1, 4, 9])
+@pytest.mark.parametrize("prev,ra,out,emit_prev", LEVELS,
+                         ids=["level4", "level3", "level2", "odd"])
+def test_dsra_level_kernel_matches_plain(cuda, prev, ra, out, emit_prev, c,
+                                         use_softmax, dtype):
+    """One launch; gated within the gate's tolerance of the plain chain's,
+    each full-size map within one step of its type (testing.level_excess)."""
+    g = torch.Generator(device=cuda).manual_seed(ra * 10 + c)
+    ts = [torch.randn((4, c, s, s), generator=g, device=cuda).to(dtype)
+          for s in (prev, prev, ra, ra)]
+    before = dsra.dsra_level.launches
+    got = ops.dsra_level(*ts, (out, out), use_softmax, emit_prev)
+    torch.cuda.synchronize()
+    assert dsra.dsra_level.launches == before + 1
+    want = dsra.dsra_level_plain(*ts, (out, out), use_softmax, emit_prev)
+    assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype)
+                                                 for t in want]
+    assert level_excess(got, want, (out, out), GATE_TOL[dtype]) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 64, 176, 176), 0),   # the stem at 352 x 352, batch 2
+    ((1, 3, 7, 10), 0),       # odd height, output rows not 16-byte aligned
+    ((3, 5, 1, 1), 0),
+    ((2, 4, 33, 65), 1),      # odd sides, the map one element off alignment
+])
+def test_stem_pool_kernel_matches_plain(cuda, shape, offset, dtype):
+    """Bit for bit, NaN and -inf inputs included."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    n = torch.Size(shape).numel()
+    z = (torch.randn(n + offset, generator=g, device=cuda) * 2).to(dtype)
+    z[offset::97] = float("nan")
+    z[offset + 5::89] = float("-inf")
+    z = z[offset:].view(shape)
+    c = shape[1]
+    vecs = [_rand(g, (c,), torch.float32, 0.1, 1.0),
+            _rand(g, (c,), torch.float32, 0.1),
+            _rand(g, (c,), torch.float32, 0.1),
+            0.5 + torch.rand((c,), generator=g, device=cuda)]
+    before = stem.stem_pool.launches
+    got = ops.stem_pool(z, *vecs, 1e-5)
+    torch.cuda.synchronize()
+    assert stem.stem_pool.launches == before + 1
+    torch.testing.assert_close(got, stem.stem_pool_plain(z, *vecs, 1e-5),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_level_and_stem_wrappers_refuse_bad_inputs(cuda):
+    x = torch.zeros((2, 1, 8, 8), device=cuda)
+    p = torch.zeros((2, 1, 4, 4), device=cuda)
+    with pytest.raises(ValueError):     # a CPU tensor among CUDA ones
+        ops.dsra_level(p, p, x, x.cpu(), (16, 16))
+    with pytest.raises(ValueError):     # not contiguous
+        ops.dsra_level(p, p, x.transpose(2, 3), x, (16, 16))
+    with pytest.raises(ValueError):     # ra_bg of another shape
+        ops.dsra_level(p, p, x, x[:, :, :4].contiguous(), (16, 16))
+    with pytest.raises(TypeError):
+        ops.dsra_level(p, p.half(), x, x, (16, 16))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.dsra_level(p, p, x.clone().requires_grad_(), x, (16, 16))
+    with torch.no_grad():
+        ops.dsra_level(p, p, x.clone().requires_grad_(), x, (16, 16))
+    z = torch.zeros((2, 4, 8, 8), device=cuda, dtype=torch.bfloat16)
+    vecs = [torch.ones(4, device=cuda) for _ in range(4)]
+    with pytest.raises(ValueError):     # a vector on the CPU
+        ops.stem_pool(z, vecs[0].cpu(), *vecs[1:])
+    with pytest.raises(ValueError):     # channels-last memory
+        ops.stem_pool(z.to(memory_format=torch.channels_last), *vecs)
+    with pytest.raises(TypeError):      # BatchNorm vectors not float32
+        ops.stem_pool(z, vecs[0].bfloat16(), *vecs[1:])
+    with pytest.raises(ValueError):     # a vector of the wrong length
+        ops.stem_pool(z, vecs[0][:3], *vecs[1:])
+    weight = torch.nn.Parameter(vecs[0].clone())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.stem_pool(z, weight, *vecs[1:])
+    with torch.inference_mode():
+        ops.stem_pool(z, weight, *vecs[1:])
+
+
+def _forward_only_calls(cuda):
+    """Each forward-only wrapper as a call whose first tensor goes through
+    ``mark`` (e.g. ``requires_grad_``), at small shapes."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    bf = torch.bfloat16
+    block = random_bottle2neck(256, 64, 0, cuda, bf)
+    fa = [t.detach() for t in block.fused_args()]
+    x4 = _rand(g, (1, 256, 8, 8), bf)
+    cc, w3 = x4[:, :104].contiguous(), fa[6]
+    mlp = _mlp_args(g, 1, 4, 4, 64, 128, bf)
+    sra = _sra_block_args(g, 1, 8, 8, 64, 2, 4, bf)
+    kv = _rand(g, (1, 4, 128), bf)
+    dw = _rand(g, (3, 3, 128), bf)
+    vecs = [torch.ones(4, device=cuda) for _ in range(4)]
+    z = _rand(g, (1, 4, 8, 8), bf)
+    maps = [_rand(g, (1, 1, s, s), bf) for s in (4, 4, 8, 8)]
+    return {
+        "max_pool3x3s2": lambda m: ops.max_pool3x3s2(m(z)),
+        "stem_pool": lambda m: ops.stem_pool(m(z), *vecs),
+        "dsra_level": lambda m: ops.dsra_level(m(maps[0]), *maps[1:],
+                                               (16, 16)),
+        "fused_bottle2neck": lambda m: res2_block.fused_bottle2neck(m(x4),
+                                                                    *fa),
+        "fused_tail": lambda m: res2_tail.fused_tail(m(cc), x4, w3, *fa[7:]),
+        "mlp_block": lambda m: pvt_mlp.mlp_block(m(mlp[0]), *mlp[1:]),
+        "sra_attention": lambda m: pvt_attn.sra_attention(
+            m(sra[0]), *sra[1:5], kv, *sra[11:], 2),
+        "sra_block": lambda m: ops.sra_block(m(sra[0]), *sra[1:], 2, 4),
+        "pvt_block": lambda m: ops.pvt_block(
+            m(sra[0]), *sra[1:], *_mlp_args(g, 1, 1, 1, 64, 128, bf)[1:9],
+            2, 4),
+        "depthwise_conv3x3": lambda m: ops.depthwise_conv3x3(
+            m(_rand(g, (1, 4, 4, 128), bf)), dw),
+    }
+
+
+FORWARD_ONLY = ("max_pool3x3s2", "stem_pool", "dsra_level",
+                "fused_bottle2neck", "fused_tail", "mlp_block",
+                "sra_attention", "sra_block", "pvt_block",
+                "depthwise_conv3x3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FORWARD_ONLY)
+def test_forward_only_wrappers_refuse_grad(cuda, name):
+    """F5's backstop: a forward-only kernel's wrapper raises on an input
+    that requires grad while autograd records, rather than return a tensor
+    with no grad_fn, and launches under no_grad."""
+    call = _forward_only_calls(cuda)[name]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call(lambda t: t.detach().requires_grad_())
+    with torch.no_grad():
+        out = call(lambda t: t.detach().requires_grad_())
+    torch.cuda.synchronize()
+    assert out is not None
+    call(lambda t: t)       # nothing requires grad: runs with grad on
+
+
+@pytest.mark.cuda
+def test_eval_backward_reaches_the_stem_on_the_card(no_tf32):
+    """F5 repaired: pranet_v2 (depths 1, 1, 1, 1) float32 in eval with
+    autograd on runs its chains on the card (no stem_pool or dsra_level
+    launch; the gate's Function three times), and the backward gives the
+    stem's three convolutions the gradients the CPU's chain gives them,
+    within 1e-4 of the largest (summation orders differ)."""
+    cpu = get_model("pranet_v2", device="cpu", layers=(1, 1, 1, 1)).eval()
+    gpu = get_model("pranet_v2", device=no_tf32, layers=(1, 1, 1, 1)).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 3, 64, 64), generator=torch.Generator().manual_seed(3))
+    counts = (stem.stem_pool, dsra.dsra_level, dsra.dsra_gate)
+    before = [f.launches for f in counts]
+    for model, xin in ((cpu, x), (gpu, x.to(no_tf32))):
+        sum(m.square().mean() for m in model(xin)).backward()
+    assert [f.launches - b for f, b in zip(counts, before)] == [0, 0, 3]
+    for i in (0, 3, 6):
+        want = cpu.backbone.conv1[i].weight.grad
+        got = gpu.backbone.conv1[i].weight.grad
+        assert got is not None and want is not None
+        assert ((got.cpu() - want).abs().max()
+                / want.abs().max()).item() < 1e-4
 
 
 # PVT kernels vs their plain versions (testing.excess): within a share of
@@ -451,7 +627,8 @@ def test_res2_tail_kernel_matches_plain(no_tf32, planes, side, dtype):
     short = _rand(g, (2, cout, side, side), dtype)
     args = (cc, short, block.conv3.weight.view(cout, cin), *_fold(block.bn3))
     before = res2_tail.fused_tail.launches
-    got = res2_tail.fused_tail(*args)
+    with torch.no_grad():   # the kernel is forward only; args hold params
+        got = res2_tail.fused_tail(*args)
     torch.cuda.synchronize()
     assert res2_tail.fused_tail.launches == before + 1
     want = res2_tail.res2_tail_plain(*args)
@@ -473,7 +650,8 @@ def test_bottle2neck_kernel_matches_plain(no_tf32, planes, side, dtype):
     x = _rand(g, (2, planes * 4, side, side), dtype)
     args = block.fused_args()
     before = res2_block.fused_bottle2neck.launches
-    got = res2_block.fused_bottle2neck(x, *args)
+    with torch.no_grad():   # the kernel is forward only; args hold params
+        got = res2_block.fused_bottle2neck(x, *args)
     torch.cuda.synchronize()
     assert res2_block.fused_bottle2neck.launches == before + 1
     want = res2_block.bottle2neck_plain(x, *args)
@@ -497,7 +675,8 @@ def test_res2_checks_reject_planted_faults(no_tf32, fault):
     g = torch.Generator(device=no_tf32).manual_seed(6)
     x = _rand(g, (2, 512, 44, 44), torch.bfloat16)
     args = block.fused_args()
-    got = res2_block.fused_bottle2neck(x, *args)
+    with torch.no_grad():   # the kernel is forward only; args hold params
+        got = res2_block.fused_bottle2neck(x, *args)
     _assert_held(got, res2_block.bottle2neck_plain(x, *args),
                  RES2_TOL[torch.bfloat16], x)
     if fault == "wrong_eps":

@@ -232,14 +232,15 @@ def test_attn_impl_routing_matches_jax(monkeypatch):
         calls.clear()
         jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), x)
         want = [names[c] for c in calls]
-        got = [pvtv2.stage_route(True, False, impl, False, sr)
+        got = [pvtv2.stage_route(True, False, False, impl, False, sr)
                for sr in pvtv2.SR_RATIOS]
         assert got == want, impl
     with pytest.raises(ValueError):
         pvtv2.PVTv2(depths=(1, 1, 1, 1), attn_impl="v3")
-    assert pvtv2.stage_route(False, False, "v2", True, 8) == "chain"
-    assert pvtv2.stage_route(True, False, "v2", True, 8) == "block"
-    assert pvtv2.stage_route(True, True, "auto:2", True, 2) == "chain"
+    assert pvtv2.stage_route(False, False, False, "v2", True, 8) == "chain"
+    assert pvtv2.stage_route(True, False, False, "v2", True, 8) == "block"
+    assert pvtv2.stage_route(True, True, False, "auto:2", True, 2) == "chain"
+    assert pvtv2.stage_route(True, False, True, "auto:2", True, 2) == "chain"
 
 
 def _nchw(x):

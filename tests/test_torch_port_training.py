@@ -71,20 +71,20 @@ def test_pvt_trains_on_the_module_chain(monkeypatch, kw):
 
 
 def test_res2net_trains_without_the_maxpool_kernel(monkeypatch):
-    """Res2Net-v1b of depth 1 a layer: eval calls the maxpool kernel's
-    wrapper, ``.train()`` the plain pooling, and its backward reaches
-    ``conv1``."""
+    """Res2Net-v1b of depth 1 a layer: eval calls the stem kernel's
+    wrapper (bn1, ReLU and the maxpool), ``.train()`` the plain pooling,
+    and its backward reaches ``conv1``."""
     g = torch.Generator().manual_seed(1)
     model = init_weights_(res2net.Res2Net(layers=(1, 1, 1, 1)), g)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 3, 32, 32)).astype(np.float32))
     calls = []
     with monkeypatch.context() as m:
-        _record(m, res2net, ("max_pool3x3s2",), calls, refuse=False)
+        _record(m, res2net, ("stem_pool",), calls, refuse=False)
         with torch.no_grad():
             model.eval()(x)
-    assert calls == ["max_pool3x3s2"]
-    _record(monkeypatch, res2net, ("max_pool3x3s2",), calls := [],
+    assert calls == ["stem_pool"]
+    _record(monkeypatch, res2net, ("stem_pool",), calls := [],
             refuse=True)
     sum(o.square().mean() for o in model.train()(x)).backward()
     assert not calls
