@@ -14,9 +14,10 @@
    the ATen chain each replaced; the whole-half and whole-block kernels'
    launches are also timed apart, with their grids, from a device trace
    (``launch_profile``).  The depthwise 3x3, which no model calls, is
-   checked at PVTv2-b2's hidden shapes; the standalone gate and the bare
-   maxpool, which the served forwards no longer call, at the shapes they
-   had.
+   checked at PVTv2-b2's hidden shapes; the bare maxpool, which the served
+   forwards no longer call, at the shape it had; the standalone gate, the
+   forward of the gate's autograd Function and so the training path's
+   kernel, at the train step's shapes in float32, bf16 and float64.
 3. Serves five paths of the port (full width and depth, random weights
    from a seed), in bf16 at 352x352, batch 16: PraNet-V2 on Res2Net-50, the
    same with its fused Res2Net blocks (``fused=True, tailfuse=True``), and
@@ -32,7 +33,18 @@
    but for the stem and decoder kernels: no kernel of the fused or PVT
    paths), and the GPU's float32 forward against the CPU's (plain
    versions) on a small input.
-4. Prints one JSON line of kernel results, then as the last line
+4. Trains (``run_training``), with PyTorch's default float32 flags: one
+   float64 step of PraNet-V2 at 256 x 256 on the card through the gate's
+   float64 kernel against the same step on the CPU; the binary recipe
+   through ``train.binary.train`` (pranet_v2 float32, batch 8 at 352,
+   scales 0.75/1/1.25, 12 steps over a synthetic set written to a temp
+   directory, the in-loop evaluation and a snapshot), with its launch
+   counts, img/s, ms a step at each scale, peak memory and the step's
+   device busy time; and 4 steps on a fixed batch of pranet_v2 in bf16
+   (autocast) and of pvt_pranet_v2 with drop path 0.1.  Each part prints a
+   ``train:`` JSON line beside the card's name and power limit.
+5. Prints one JSON line of kernel results (``launches`` summed over the
+   served paths and the training parts), then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside the
@@ -42,6 +54,7 @@ repository, or when any check fails.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -55,6 +68,10 @@ BF16_MMA_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
 BATCH, SIZE = 16, 352
 N_IMAGES = 40               # batches of 16, 16 and a padded 8
 GATE_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+F64_GATE_TOL = 1e-12        # the float64 gate, relative to max |out|
+# the binary recipe (pranet2_tpu/train/binary.py): batch 8 at 352, scales
+# 0.75, 1 and 1.25 (256, 352 and 448)
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_RATES = 8, 352, (0.75, 1.0, 1.25)
 # PVT kernels vs their plain versions (testing.excess): within a share of
 # the largest |kernel part|, the output less its residual (or, with the
 # stage LN, less LN(x)), plus half a step of each side's last rounding.
@@ -393,13 +410,36 @@ def check_gate(torch, dev) -> list:
     return [level, _check_gate_alone(torch, dev, g)]
 
 
+def _rate_size_of(rate: float) -> int:
+    """The recipe's image side at scale ``rate``."""
+    from pranet2_tpu_torch.train.binary import _rate_size
+
+    return _rate_size(TRAIN_SIZE, rate)
+
+
+def _train_sides() -> list:
+    """The gate's map sides in the train step: the three decoder levels
+    (S/32, S/16, S/8) at each scale's size S."""
+    return [_rate_size_of(r) // d for r in TRAIN_RATES for d in (32, 16, 8)]
+
+
 def _check_gate_alone(torch, dev, g) -> dict:
-    """``dsra_gate`` at the three levels' shapes (bf16) and at four
-    channels, against ``dsra_gate_plain``; its times are the three
-    levels' sum."""
+    """``dsra_gate``, the forward of the gate's autograd Function and so
+    the training path's kernel: at the train step's shapes (batch 8, one
+    channel, the three levels at each scale) in float32, the recipe's type
+    (its times are one batch's worth: nine calls), and in bf16; in float64
+    at the 0.75 scale's shapes (the card-vs-CPU step's); then at the
+    serving levels' shapes (bf16, batch 16) and four channels.  Each
+    against ``dsra_gate_plain``: float32 and bf16 within ``GATE_TOL``
+    elementwise, float64 within ``F64_GATE_TOL`` of max |out|."""
     from pranet2_tpu_torch.ops import dsra
 
-    cases = [((BATCH, 1, s, s), torch.bfloat16, True) for s in (44, 22, 11)]
+    sides = _train_sides()
+    cases = [((TRAIN_BATCH, 1, s, s), dt, dt == torch.float32)
+             for dt in (torch.float32, torch.bfloat16) for s in sides]
+    cases += [((TRAIN_BATCH, 1, s, s), torch.float64, False)
+              for s in sides[:3]]
+    cases += [((BATCH, 1, s, s), torch.bfloat16, False) for s in (44, 22, 11)]
     cases += [((BATCH, 4, 44, 44), dt, False)
               for dt in (torch.float32, torch.bfloat16)]
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
@@ -412,14 +452,19 @@ def _check_gate_alone(torch, dev, g) -> dict:
         want = dsra.dsra_gate_plain(fg, cf, cb, True)
         torch.cuda.synchronize()
         name = str(dt).removeprefix("torch.")
-        tol = GATE_TOL[name]
-        err = (got.float() - want.float()).abs()
-        if not bool((err <= tol + tol * want.float().abs()).all()):
+        err = (got.double() - want.double()).abs()
+        if dt == torch.float64:
+            ok = err.max() <= F64_GATE_TOL * want.abs().max()
+        else:
+            tol = GATE_TOL[name]
+            ok = (err <= tol + tol * want.double().abs()).all()
+        if not bool(ok):
             raise AssertionError(f"gate kernel differs from its plain version "
                                  f"at {shape} {name}: max {err.max().item()}")
         # per element: the difference, max, exp, sum and divide of the
         # softmax twice over, then fg * gate + fg
-        b, by = bound_ms(4 * fg.numel() * fg.element_size(), 10 * fg.numel())
+        b, by_ = bound_ms(4 * fg.numel() * fg.element_size(),
+                          10 * fg.numel())
         kernel = lambda: dsra.dsra_gate(fg, cf, cb, True)
         row = {"shape": list(shape), "dtype": name, "main_path": main_path,
                "max_abs_err": err.max().item(),
@@ -431,8 +476,12 @@ def _check_gate_alone(torch, dev, g) -> dict:
         shapes.append(row)
         worst = max(worst, row["max_abs_err"])
         if main_path:
+            by = by_
             for k in total:
                 total[k] += row[k]
+    print(f"dsra_gate, a train batch's nine float32 calls: ms "
+          f"{total['ms']:.4f}, device {total['device_ms']:.4f}, host "
+          f"{total['host_ms']:.4f}, bound {total['bound_ms']:.5f}")
     return {"name": "dsra_gate", "route": "cuda",
             "source": "pranet2_tpu_torch/csrc/dsra.cu",
             "replaces": "pranet2_tpu/ops/dsra.py:71",
@@ -1166,6 +1215,10 @@ def _reset_counts():
             f.mode_launches = dict.fromkeys(f.mode_launches, 0)
 
 
+def _launch_counts() -> dict:
+    return {k: f.launches for k, f in _wrappers().items()}
+
+
 def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
     """Serve the synthetic images on path ``label``; count launches over
     exactly that run."""
@@ -1183,9 +1236,8 @@ def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
         masks = list(pred.stream(images))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        wrappers = _wrappers()
-        counts = {k: f.launches for k, f in wrappers.items()}
-        modes = dict(wrappers["mlp_block"].mode_launches)
+        counts = _launch_counts()
+        modes = dict(_wrappers()["mlp_block"].mode_launches)
         forwards = -(-N_IMAGES // BATCH)
         want = {k: n * forwards for k, n in launches.items()}
         want_modes = {k: n * forwards for k, n in MLP_MODES[label].items()}
@@ -1342,6 +1394,275 @@ def check_reference(torch, name, state_dict, batch, logits_bf16) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training: the binary recipe of pranet2_tpu/train/binary.py on the port
+# ---------------------------------------------------------------------------
+
+
+def write_polyp_set(np, root, n: int, seed: int) -> None:
+    """``n`` image/mask PNG pairs under ``root/images`` and ``root/masks``:
+    the serving phase's uint8 images (288-576 px sides) with a blob mask
+    each, a disc of a random centre and radius."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(288, 577, 2))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        yy, xx = np.mgrid[:h, :w]
+        cy, cx = rng.integers(h // 4, 3 * h // 4), rng.integers(w // 4,
+                                                                3 * w // 4)
+        r = rng.integers(min(h, w) // 8, min(h, w) // 3)
+        mask = (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r).astype(
+            np.uint8) * 255
+        Image.fromarray(img).save(os.path.join(root, "images", f"{i}.png"))
+        Image.fromarray(mask).save(os.path.join(root, "masks", f"{i}.png"))
+
+
+def train_card_vs_cpu(torch, dev) -> dict:
+    """One train step's forward and backward of ``pranet_v2`` (full width
+    and depth, batch 2 at 256 x 256, the 0.75 scale's size) in float64 on
+    the card, through the gate's float64 kernel, and on the CPU, with the
+    same weights and batch.  Held: the loss within 1e-9 relative; each
+    parameter's gradient within 1e-6 of its largest |value| plus 1e-12 of
+    the model's largest (a gradient that is zero in exact arithmetic, as
+    a BatchNorm bias's before another BatchNorm, is rounding noise of the
+    whole); the BatchNorm running statistics within 1e-8 relative and
+    1e-10 absolute.  Float64, because train-mode BatchNorm carries float32
+    ordering noise through about 50 layers into percent-level gradient
+    differences."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.ops import dsra
+    from pranet2_tpu_torch.train.binary import train_loss
+
+    cpu = get_model("pranet_v2", device="cpu", num_class=1,
+                    generator=torch.Generator().manual_seed(5)).double()
+    gpu = get_model("pranet_v2", device=dev, num_class=1).double()
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 3, 256, 256), generator=g, dtype=torch.float64)
+    gts = (torch.rand((2, 1, 256, 256), generator=g) > 0.6).double()
+    before = dsra.dsra_gate.launches
+    t0 = time.perf_counter()
+    loss_gpu, _ = train_loss(gpu.train(), x.to(dev), gts.to(dev))
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dsra.dsra_gate.launches - before
+    loss_cpu, _ = train_loss(cpu.train(), x, gts)
+    loss_cpu.backward()
+    t2 = time.perf_counter()
+    if launches < 3:
+        raise AssertionError(f"float64 step: {launches} dsra_gate launches")
+    loss_err = abs(loss_gpu.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    cpu_p, gpu_p = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+    scale = max(p.grad.abs().max().item() for p in cpu_p.values()
+                if p.grad is not None)
+    worst_grad = 0.0
+    for k, p in cpu_p.items():
+        q = gpu_p[k].grad
+        if p.grad is None or q is None:
+            if (p.grad is None) != (q is None):
+                raise AssertionError(f"float64 step: {k} has a gradient on "
+                                     "one side only")
+            continue
+        err = (q.cpu() - p.grad).abs().max().item()
+        bound = 1e-6 * p.grad.abs().max().item() + 1e-12 * scale
+        if err > bound:
+            raise AssertionError(f"float64 step: gradient of {k} off by "
+                                 f"{err:.3g} (bound {bound:.3g})")
+        worst_grad = max(worst_grad, err / bound)
+    worst_stat = 0.0
+    gpu_b = dict(gpu.named_buffers())
+    for k, b in cpu.named_buffers():
+        if not k.endswith(("running_mean", "running_var")):
+            continue
+        err = (gpu_b[k].cpu() - b).abs()
+        bound = 1e-10 + 1e-8 * b.abs()
+        worst_stat = max(worst_stat, (err / bound).max().item())
+    if worst_stat > 1:
+        raise AssertionError(f"float64 step: BatchNorm statistics off "
+                             f"({worst_stat:.3g} times the tolerance)")
+    if loss_err > 1e-9:
+        raise AssertionError(f"float64 step: loss {loss_gpu.item()} on the "
+                             f"card, {loss_cpu.item()} on the CPU")
+    return {"phase": "card_vs_cpu_f64", "dsra_gate_launches": launches,
+            "loss": loss_cpu.item(), "loss_rel_err": loss_err,
+            "grad_worst_share_of_tol": worst_grad,
+            "bn_worst_share_of_tol": worst_stat,
+            "card_s": t1 - t0, "cpu_s": t2 - t1}
+
+
+def train_recipe(torch, np, dev) -> dict:
+    """The recipe through its entry point, ``train``: ``pranet_v2`` float32,
+    batch 8 at 352, scales 0.75/1/1.25, ``epochs=3`` (the reference's
+    range(1, epochs): 2 epochs of 2 batches, 12 steps) over 16 synthetic
+    image/mask pairs (cached by the worker pool, fed by
+    ``DevicePrefetcher``), ``test_with_eval`` each epoch on 8 more, and one
+    snapshot (``save_state``).  Launch counts from just before ``train``
+    to just after: 9 ``dsra_gate`` a batch (3 a step, at 3 scales), and one
+    ``stem_pool`` and three ``dsra_level`` an eval forward (8 images, one
+    batch, each epoch).  Then, on the trained state and one batch, the ms
+    of a step at each scale (CUDA events), and the 352 step's device busy
+    time (``device_time``) and idle share."""
+    from pranet2_tpu_torch.train.binary import (BinaryTrainConfig,
+                                                make_train_step, train,
+                                                test_with_eval)
+
+    with tempfile.TemporaryDirectory() as root:
+        write_polyp_set(np, os.path.join(root, "TrainDataset"), 16, seed=1)
+        write_polyp_set(np, os.path.join(root, "TestDataset", "SYN"), 8,
+                        seed=2)
+        cfg = BinaryTrainConfig(
+            model="pranet_v2", epochs=3, batch_size=TRAIN_BATCH,
+            trainsize=TRAIN_SIZE, size_rates=TRAIN_RATES,
+            train_path=os.path.join(root, "TrainDataset"),
+            test_root=os.path.join(root, "TestDataset"),
+            eval_datasets=("SYN",), save_dir=os.path.join(root, "snap"),
+            snapshot_every=2, log_every=1, device=str(dev))
+        metrics, logs = [], []
+
+        def eval_fn(model, state):
+            res = test_with_eval(model, cfg.test_root, cfg.eval_datasets,
+                                 testsize=cfg.trainsize,
+                                 batch_size=TRAIN_BATCH)["SYN"]
+            metrics.append(res)
+            return res["meanDic"]
+
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, best, history = train(cfg, eval_fn=eval_fn, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = state.step
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        snaps = sorted(os.listdir(cfg.save_dir))
+        want = dict.fromkeys(counts, 0)
+        want.update(dsra_gate=9 * 4, stem_pool=2, dsra_level=6)
+        if counts != want:
+            raise AssertionError(f"recipe: launches {counts}, expected {want}")
+        if steps != 12 or snaps != ["epoch_2.pt"] or best is None:
+            raise AssertionError(f"recipe: step {steps}, snapshots "
+                                 f"{snaps}, best kept: {best is not None}")
+        losses = [h["loss"] for h in history]
+        if not all(np.isfinite(losses)) or len(metrics) != 2 or not all(
+                np.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"recipe: losses {losses}, metrics "
+                                 f"{metrics}")
+
+        # one batch of the set, on the trained state: each scale's step
+        x = torch.randn((TRAIN_BATCH, 3, TRAIN_SIZE, TRAIN_SIZE),
+                        device=dev, generator=torch.Generator(
+                            device=dev).manual_seed(7))
+        gts = (x[:, :1] > 0.5).float()
+        per_scale = {}
+        for rate in TRAIN_RATES:
+            step = make_train_step(state.model, target_size=_rate_size_of(
+                rate), rescale=rate != 1.0)
+            per_scale[str(rate)] = time_ms(lambda: step(state, x, gts),
+                                           reps=3, rounds=3)
+        step = make_train_step(state.model, target_size=TRAIN_SIZE,
+                               rescale=False)
+        busy = device_time(torch, lambda: step(state, x, gts), forwards=3)
+    step_ms = sum(per_scale.values())
+    return {"phase": "recipe", "model": "pranet_v2", "dtype": "float32",
+            "batch": TRAIN_BATCH, "trainsize": TRAIN_SIZE,
+            "scales": list(TRAIN_RATES), "steps": steps,
+            "launches": counts, "epochs": history,
+            "train_img_per_s_3_scales": history[-1]["img_per_sec"],
+            "wall_s": wall, "peak_mem_gb": peak / 1e9,
+            "ms_per_step": per_scale,
+            "batch_ms_3_scales": step_ms,
+            "batch_img_per_s_3_scales": 3 * TRAIN_BATCH / step_ms * 1e3,
+            "step_352_busy_ms": busy["busy_ms"],
+            "step_352_idle_share": (None if busy["busy_ms"] is None else
+                                    1 - busy["busy_ms"] / per_scale["1.0"]),
+            "step_352_top": busy["top"][:6], "metrics": metrics[-1],
+            "log_tail": logs[-3:]}
+
+
+def train_fixed_batch(torch, dev, name: str, compute, kwargs: dict) -> dict:
+    """4 recipe steps (Adam 1e-4, clip 0.5) of ``name`` on one fixed batch
+    of 8 at 352: random images and binary masks from a seed.  Returns the
+    losses, the ms of each step (CUDA events) and the gate's launches."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.train import TrainState, make_optimizer
+    from pranet2_tpu_torch.train.binary import make_train_step
+
+    model = get_model(name, device=dev, num_class=1, **kwargs)
+    state = TrainState(model, make_optimizer(model.parameters(),
+                                                     1e-4, clip_value=0.5))
+    step = make_train_step(model, target_size=TRAIN_SIZE, rescale=False,
+                           compute_dtype=compute)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((TRAIN_BATCH, 3, TRAIN_SIZE, TRAIN_SIZE), device=dev,
+                    generator=g)
+    gts = (torch.rand((TRAIN_BATCH, 1, TRAIN_SIZE, TRAIN_SIZE), device=dev,
+                      generator=g) > 0.5).float()
+    _reset_counts()
+    losses, ms = [], []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss, _ = step(state, x, gts)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+    counts = _launch_counts()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    if counts["dsra_gate"] != 12 or sum(counts.values()) != 12:
+        raise AssertionError(f"{name}: launches {counts}")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError(f"{name}: a parameter left float32")
+    return {"model": name, "dtype": "bfloat16" if compute else "float32",
+            "kwargs": kwargs, "losses": losses, "ms_per_step": ms,
+            "dsra_gate_launches": counts["dsra_gate"]}
+
+
+def run_training(torch, np, dev, card) -> dict:
+    """The training phase; prints a ``train:`` JSON line for each part.
+    Runs with PyTorch's default float32 flags (cuDNN's TF32 on, cuBLAS's
+    off), as a user of the CLI trains; returns the launch counts of each
+    part."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f64 = train_card_vs_cpu(torch, dev)
+        recipe = train_recipe(torch, np, dev)
+        bf16 = train_fixed_batch(torch, dev, "pranet_v2", torch.bfloat16,
+                                 {})
+        if not bf16["losses"][-1] < bf16["losses"][0]:
+            raise AssertionError(f"bf16: the loss did not fall: "
+                                 f"{bf16['losses']}")
+        pvt = train_fixed_batch(torch, dev, "pvt_pranet_v2", None,
+                                {"drop_path_rate": 0.1})
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    for part in (f64, recipe, {"phase": "bf16", **bf16},
+                 {"phase": "pvt", **pvt}):
+        print("train: " + json.dumps({"card": card, **part}))
+    print(f"train recipe pranet_v2 f32 {TRAIN_SIZE} batch {TRAIN_BATCH}, 3 "
+          f"scales: {recipe['train_img_per_s_3_scales']:.1f} img/s in its "
+          f"last epoch, {recipe['batch_img_per_s_3_scales']:.1f} img/s by "
+          f"step times {recipe['ms_per_step']}, peak "
+          f"{recipe['peak_mem_gb']:.2f} GB, 352 step busy "
+          f"{recipe['step_352_busy_ms']} ms on {card}")
+    return {"train": recipe["launches"],
+            "train_f64": {"dsra_gate": f64["dsra_gate_launches"]},
+            "train_bf16": {"dsra_gate": bf16["dsra_gate_launches"]},
+            "train_pvt": {"dsra_gate": pvt["dsra_gate_launches"]}}
+
+
 def main() -> int:
     import torch
 
@@ -1397,8 +1718,11 @@ def main() -> int:
               f"{model['stream_img_per_s']:.1f} img/s on {card}")
         print("model: " + json.dumps(model))
         models.append(model)
+    train_runs = run_training(torch, np, dev, card)
     for k in kernels:
         by_path = {m["model"]: m["launches"][k["name"]] for m in models}
+        by_path.update({label: counts.get(k["name"], 0)
+                        for label, counts in train_runs.items()})
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(f"device traces: {TRACES['sessions']} sessions, "

@@ -6,8 +6,9 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
-// Must match pranet2_tpu_torch/ops/_build.py::DTYPE_CODES.
-enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+// Must match pranet2_tpu_torch/ops/_build.py::DTYPE_CODES; kFloat64 only
+// the standalone DSRA gate takes (ops/dsra.py::GATE_CODES).
+enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2, kFloat64 = 3 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }

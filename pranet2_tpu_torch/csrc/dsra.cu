@@ -88,6 +88,32 @@ __global__ void dsra_gate_kernel(const T* __restrict__ fg, const T* __restrict__
   }
 }
 
+// The gate in float64, the plain version's arithmetic under
+// promote_types(float64, float32): the difference, the softmax (max, exp,
+// sum, divide) and fg + fg * gate all in double.  It serves a float64 train
+// step (held against the CPU to 1e-9), not the models' float32 or bf16
+// paths.
+__global__ void dsra_gate_f64_kernel(const double* __restrict__ fg, const double* __restrict__ cf,
+                                     const double* __restrict__ cb, double* __restrict__ out,
+                                     long long n, int c, long long hw, int use_softmax) {
+  const long long total = n * hw;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long base = (i / hw) * c * hw + i % hw;
+    double mx = -INFINITY, sum = 0.0;
+    if (use_softmax) {
+      for (int k = 0; k < c; ++k) mx = fmax(mx, cf[base + k * hw] - cb[base + k * hw]);
+      for (int k = 0; k < c; ++k) sum += exp(cf[base + k * hw] - cb[base + k * hw] - mx);
+    }
+    for (int k = 0; k < c; ++k) {
+      const long long j = base + k * hw;
+      const double d = cf[j] - cb[j];
+      const double gate = use_softmax ? exp(d - mx) / sum : d;
+      out[j] = fg[j] + fg[j] * gate;
+    }
+  }
+}
+
 // ATen's upsample_bilinear2d along one axis: output index d reads source
 // indices i0 and i1 with weights l0 and l1.
 struct Taps {
@@ -368,6 +394,15 @@ static void launch_gate(const void* fg, const void* cf, const void* cb, void* ou
       static_cast<T*>(out), n, c, hw, use_softmax);
 }
 
+static void launch_gate_f64(const void* fg, const void* cf, const void* cb, void* out,
+                            long long n, int c, long long hw, int use_softmax,
+                            cudaStream_t stream) {
+  const int threads = 256;
+  dsra_gate_f64_kernel<<<grid_for(n * hw, threads), threads, 0, stream>>>(
+      static_cast<const double*>(fg), static_cast<const double*>(cf),
+      static_cast<const double*>(cb), static_cast<double*>(out), n, c, hw, use_softmax);
+}
+
 // Rows of a resize in -> out that `rows` consecutive output rows read, at
 // most (one more for the float source index's rounding).
 static int rows_cap(int in, int out, int rows) {
@@ -416,7 +451,7 @@ static int launch_level(const void* pfg, const void* pbg, const void* rfg, const
 
 }  // namespace
 
-// fg, cf, cb, out: (n, c, hw) contiguous, one type.
+// fg, cf, cb, out: (n, c, hw) contiguous, one type (float64 too).
 // Returns the cudaError_t of the launch.
 extern "C" int dsra_gate(int dtype, const void* fg, const void* cf, const void* cb, void* out,
                          long long n, int c, long long hw, int use_softmax, void* stream) {
@@ -425,6 +460,7 @@ extern "C" int dsra_gate(int dtype, const void* fg, const void* cf, const void* 
     case kFloat32: launch_gate<float>(fg, cf, cb, out, n, c, hw, use_softmax, s); break;
     case kBFloat16: launch_gate<__nv_bfloat16>(fg, cf, cb, out, n, c, hw, use_softmax, s); break;
     case kFloat16: launch_gate<__half>(fg, cf, cb, out, n, c, hw, use_softmax, s); break;
+    case kFloat64: launch_gate_f64(fg, cf, cb, out, n, c, hw, use_softmax, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -50,8 +50,12 @@ Two options select the JAX package's opt-in PVT kernels, in bfloat16:
 are the same on every route.
 
 The JAX package's space-to-depth stage-1 patch embed is a TPU restructure of
-the same convolution and is not carried over.  Drop path is the identity at
-eval; training comes later.
+the same convolution and is not carried over.
+
+Stochastic depth: each block drops its attention and its MLP branch per
+sample at its rate, a linear ramp from 0 at the first block to
+``drop_path_rate`` (0.1, ``pvtv2.py:424,469``) at the last, in training
+only (``nn.DropPath``; the module chain is the only route that trains).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pranet2_tpu_torch.nn import LayerNorm
+from pranet2_tpu_torch.nn import DropPath, LayerNorm
 from pranet2_tpu_torch.ops.pvt_attn import sra_attention, sra_block
 from pranet2_tpu_torch.ops.pvt_block import pvt_block
 from pranet2_tpu_torch.ops.pvt_mlp import ln_stats, mlp_block
@@ -180,17 +184,18 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
-                 sr_ratio: int):
+                 sr_ratio: int, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = SRAttention(dim, num_heads, sr_ratio)
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, dim * mlp_ratio)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
-        """Module chain (float32 path)."""
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        """Module chain (float32 path, and training in any type)."""
+        x = x + self.drop_path(self.attn(self.norm1(x)))
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
     def attn_args(self):
         """``sra_block``'s parameters after x: LN1, q, the K/V path (None
@@ -252,15 +257,20 @@ class Block(nn.Module):
 class PVTv2(nn.Module):
     """Returns the 4-stage NCHW feature pyramid (strides 4/8/16/32).
     ``attn_impl`` and ``blockfuse`` choose the bfloat16 kernels (see the
-    module's docstring)."""
+    module's docstring); ``drop_path_rate`` is the last block's stochastic
+    depth in training."""
 
     def __init__(self, embed_dims=(64, 128, 320, 512), depths=(3, 4, 6, 3),
                  num_heads=(1, 2, 5, 8), mlp_ratios=(8, 8, 4, 4),
-                 attn_impl: str = "v1", blockfuse: bool = False):
+                 attn_impl: str = "v1", blockfuse: bool = False,
+                 drop_path_rate: float = 0.1):
         super().__init__()
         for sr in SR_RATIOS:
             stage_attn_impl(attn_impl, sr)  # refuses an unknown name now
         self.attn_impl, self.blockfuse = attn_impl, blockfuse
+        total = sum(depths)
+        dpr = iter(drop_path_rate * i / max(total - 1, 1)
+                   for i in range(total))
         cin = 3
         for s, dim in enumerate(embed_dims, start=1):
             patch, stride = (7, 4) if s == 1 else (3, 2)
@@ -268,7 +278,8 @@ class PVTv2(nn.Module):
                     OverlapPatchEmbed(cin, dim, patch, stride))
             setattr(self, f"block{s}", nn.ModuleList(
                 Block(dim, num_heads[s - 1], mlp_ratios[s - 1],
-                      SR_RATIOS[s - 1]) for _ in range(depths[s - 1])))
+                      SR_RATIOS[s - 1], next(dpr))
+                for _ in range(depths[s - 1])))
             setattr(self, f"norm{s}", LayerNorm(dim, eps=1e-6))
             cin = dim
 
@@ -297,6 +308,6 @@ class PVTv2(nn.Module):
 
 
 def pvt_v2(variant: str = "b2", **kw) -> PVTv2:
-    """PVTv2 of ``variant``; ``kw`` (``attn_impl``, ``blockfuse``) go to
-    ``PVTv2``."""
+    """PVTv2 of ``variant``; ``kw`` (``attn_impl``, ``blockfuse``,
+    ``drop_path_rate``) go to ``PVTv2``."""
     return PVTv2(**PVT_CONFIGS[variant], **kw)

@@ -24,9 +24,12 @@ branches are TPU restructures of the same arithmetic and are left out.
 * Deep stem: three 3x3 convs (3->32->32->64, the first stride 2) with
   BN+ReLU, then the 3x3/2 maxpool: in eval with autograd off bn1, its
   ReLU and the pool in one kernel (``ops.stem.stem_pool``, as the JAX
-  package folds bn1 into its bf16 stem), otherwise ``bn1``, ReLU and the
-  plain ``ops.max_pool``, which have a gradient (JAX's module path pools
-  the same way, ``pranet2_tpu/models/backbones/res2net.py:350``).
+  package folds bn1 into its bf16 stem), otherwise ``bn1``, ReLU and
+  ``F.max_pool2d``, which have a gradient: JAX's module path pools with
+  ``reduce_window`` outside any Pallas kernel
+  (``pranet2_tpu/models/backbones/res2net.py:350``), and both send the
+  whole gradient of a window to its first maximum where values tie (the
+  plain ``ops.max_pool``, the kernel's yardstick, would split it).
 * Downsample shortcut: stride x stride avg-pool (ceil mode,
   ``count_include_pad=False``), then 1x1 conv + BN.
 
@@ -41,10 +44,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from pranet2_tpu_torch.ops import (avg_pool, max_pool, res2_block,
-                                   res2_tail, stem_pool)
+from pranet2_tpu_torch.ops import avg_pool, res2_block, res2_tail, stem_pool
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -173,14 +176,18 @@ class Res2Net(nn.Module):
                                            fused, tailfuse))
             setattr(self, f"layer{li}", nn.Sequential(*seq))
 
-    def forward(self, x):
-        z = self.conv1(x)
+    def stem_tail(self, z):
+        """bn1, ReLU and the 3x3/2 maxpool of the deep stem's output: one
+        ``stem_pool`` launch in eval with autograd off, else the module
+        chain with ``F.max_pool2d``."""
         if self.training or torch.is_grad_enabled():
-            x = max_pool(torch.relu(self.bn1(z)), 3, 2, 1)
-        else:
-            bn = self.bn1
-            x = stem_pool(z, bn.weight, bn.bias, bn.running_mean,
-                          bn.running_var, bn.eps)
+            return F.max_pool2d(torch.relu(self.bn1(z)), 3, 2, 1)
+        bn = self.bn1
+        return stem_pool(z, bn.weight, bn.bias, bn.running_mean,
+                         bn.running_var, bn.eps)
+
+    def forward(self, x):
+        x = self.stem_tail(self.conv1(x))
         x1 = self.layer1(x)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)

@@ -1,7 +1,8 @@
 """Shared building blocks (NCHW), named after the reference's torch modules.
 
 Port of ``pranet2_tpu/nn.py``: ``ConvBN`` (the reference's ``BasicConv2d``),
-``RFB`` and the dual-head ``PartialDecoder``.  BatchNorm is
+``RFB``, the dual-head ``PartialDecoder`` and ``DropPath`` (stochastic
+depth).  BatchNorm is
 ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  The JAX package's ``decdot``
 and ``splitconv`` paths are TPU layout rewrites of the same convolutions and
 are not carried over.
@@ -39,6 +40,40 @@ class LayerNorm(nn.LayerNorm):
         var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight)
         return (y + self.bias).to(x.dtype)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """Per-sample stochastic depth (timm ``DropPath``, scale_by_keep=True),
+    as ``pranet2_tpu/nn.py:82-95``.
+
+    Identity at rate 0 or outside training; otherwise zeroes whole samples
+    with probability ``rate`` and rescales the others by 1/keep.  The
+    draws come from ``generator`` (torch's default generator when None),
+    on the generator's device.
+    """
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    dev = x.device if generator is None else generator.device
+    mask = torch.rand(shape, generator=generator, device=dev) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """``drop_path`` at a fixed rate, drawing from ``self.generator``, which
+    the trainer sets (the JAX package folds its dropout key by the step).
+    It holds no parameter or buffer: a model's ``state_dict`` is the same
+    with it."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        return drop_path(x, self.rate, self.training, self.generator)
 
 
 class ConvBN(nn.Module):

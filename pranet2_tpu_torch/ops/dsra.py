@@ -18,7 +18,10 @@ with ``dsra_gate`` otherwise.
 the plain version's math and differentiates it, as the JAX package's
 custom VJP differentiates its XLA math (``pranet2_tpu/ops/dsra.py:83-124``).
 The plain version computes in ``promote_types(dtype, float32)``: float32
-for bf16 and f32 inputs, float64 for float64 ones, as JAX under x64.
+for bf16 and f32 inputs, float64 for float64 ones, as JAX under x64.  The
+gate's kernel has a float64 instance with its softmax in double, so that a
+float64 train step runs through it on the card; ``dsra_level`` takes
+float32, bf16 and float16 only.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ import torch
 
 from pranet2_tpu_torch.ops import _build
 from pranet2_tpu_torch.ops.resize import resize_bilinear
+
+# the element types of dsra_gate's kernel: the port's three and float64
+GATE_CODES = {**_build.DTYPE_CODES, torch.float64: 3}
 
 
 def dsra_gate_plain(fg: torch.Tensor, crop_fg: torch.Tensor,
@@ -63,8 +69,7 @@ def _forward(fg, crop_fg, crop_bg, use_softmax):
     if fg.dim() != 4 or any(t.shape != fg.shape for t in ts):
         raise ValueError("dsra_gate: needs three NCHW tensors of one shape, "
                          f"got {[tuple(t.shape) for t in ts]}")
-    if fg.dtype not in _build.DTYPE_CODES or any(t.dtype != fg.dtype
-                                                 for t in ts):
+    if fg.dtype not in GATE_CODES or any(t.dtype != fg.dtype for t in ts):
         raise TypeError("dsra_gate: needs one float type for all inputs, got "
                         f"{[t.dtype for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
@@ -74,7 +79,7 @@ def _forward(fg, crop_fg, crop_bg, use_softmax):
     if out.numel() == 0:
         return out
     with torch.cuda.device(fg.device):
-        err = _kernel()(_build.DTYPE_CODES[fg.dtype], fg.data_ptr(),
+        err = _kernel()(GATE_CODES[fg.dtype], fg.data_ptr(),
                         crop_fg.data_ptr(), crop_bg.data_ptr(), out.data_ptr(),
                         n, c, h * w, int(use_softmax), _build.stream_ptr(fg))
     _build.check(err, "dsra_gate")
@@ -109,8 +114,8 @@ def dsra_gate(fg: torch.Tensor, crop_fg: torch.Tensor, crop_bg: torch.Tensor,
     """The gate over (N, C, H, W) maps; ``use_softmax=False`` is the linear form.
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
-    three contiguous tensors of one shape and one float type and raises on
-    anything else.  Differentiable in every input (backward through the
+    three contiguous tensors of one shape and one float type (float32,
+    bfloat16, float16 or float64) and raises on anything else.  Differentiable in every input (backward through the
     plain math).  ``dsra_gate.launches`` counts kernel launches.
     """
     return _Gate.apply(fg, crop_fg, crop_bg, use_softmax)

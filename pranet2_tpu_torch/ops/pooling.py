@@ -3,8 +3,11 @@
 Port of ``pranet2_tpu/ops/pooling.py``.  The JAX package re-creates
 ``F.avg_pool2d``'s ceil-mode and ``count_include_pad`` rules; here they are
 PyTorch's own.  ``max_pool`` is written as shifted maxes over a -inf-padded
-map: it is the plain version the stem maxpool kernel is held against, so it
-does not call ``F.max_pool2d``.
+map: it is the plain version the stem maxpool kernel is held against (in
+the tests and ``chip_smoke.py``), so it does not call ``F.max_pool2d``.  No
+model differentiates it: ``torch.maximum`` splits the gradient between tied
+inputs, where JAX's ``reduce_window`` max and ``F.max_pool2d`` send all of
+it to the first maximum, so the Res2Net stem trains on ``F.max_pool2d``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,12 @@ def avg_pool(x: torch.Tensor, kernel_size, stride=None, padding=0,
     """``F.avg_pool2d`` (sums in float32 for reduced-precision inputs)."""
     return F.avg_pool2d(x, kernel_size, stride, padding, ceil_mode=ceil_mode,
                         count_include_pad=count_include_pad)
+
+
+def avg_pool_same(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Stride-1, 'same'-size average pool (``F.avg_pool2d(x, k, 1, k//2)``,
+    padding counted), the structure loss's boundary weight."""
+    return avg_pool(x, kernel_size, 1, kernel_size // 2)
 
 
 def max_pool(x: torch.Tensor, kernel_size, stride=None, padding=0

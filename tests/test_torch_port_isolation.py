@@ -26,6 +26,10 @@ def _forbidden(module: str) -> bool:
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, pranet2_tpu_torch, pranet2_tpu_torch.serve\n"
+            "import pranet2_tpu_torch.train.binary, pranet2_tpu_torch.losses\n"
+            "import pranet2_tpu_torch.evalx, pranet2_tpu_torch.data\n"
+            "import pranet2_tpu_torch.utils.checkpoint\n"
+            "import pranet2_tpu_torch.cli.train_binary\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

@@ -437,6 +437,56 @@ def test_dsra_gate_grad_on_the_card(cuda, use_softmax):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_softmax", [True, False])
+@pytest.mark.parametrize("c", [1, 4, 9])
+def test_dsra_kernel_f64_matches_plain(cuda, c, use_softmax):
+    """The gate's float64 instance (softmax in double) within 1e-12 of the
+    plain version's largest |out|: exp and the sum order differ by ulps.
+    ``dsra_level`` has no float64 instance and refuses it."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    fg, cf, cb = (torch.randn((8, c, 56, 56), generator=g, device=cuda,
+                              dtype=torch.float64) for _ in range(3))
+    before = dsra.dsra_gate.launches
+    got = ops.dsra_gate(fg, cf, cb, use_softmax)
+    torch.cuda.synchronize()
+    assert dsra.dsra_gate.launches == before + 1 and got.dtype == fg.dtype
+    want = dsra.dsra_gate_plain(fg, cf, cb, use_softmax)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-12
+    p = fg[:, :, :7, :7].contiguous()
+    with pytest.raises(TypeError):
+        ops.dsra_level(p, p, fg, fg, (112, 112))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", [None, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_train_step_on_the_card_runs_the_gate_kernel(no_tf32, compute):
+    """One recipe train step of pranet_v2 (depths 1, 1, 1, 1) on the card:
+    three gate launches a step and no stem or level kernel; float32
+    parameters under bf16 autocast; a finite loss and gradient step."""
+    from pranet2_tpu_torch.train import TrainState, make_optimizer
+    from pranet2_tpu_torch.train.binary import make_train_step
+
+    model = get_model("pranet_v2", device=no_tf32, layers=(1, 1, 1, 1))
+    state = TrainState(model, make_optimizer(model.parameters(),
+                                                     1e-4))
+    step = make_train_step(model, target_size=96, rescale=True,
+                           compute_dtype=compute)
+    g = torch.Generator(device=no_tf32).manual_seed(5)
+    x = torch.randn((2, 3, 64, 64), generator=g, device=no_tf32)
+    gts = (torch.rand((2, 1, 64, 64), generator=g, device=no_tf32)
+           > 0.5).float()
+    counts = (stem.stem_pool, dsra.dsra_level, dsra.dsra_gate)
+    before = [f.launches for f in counts]
+    state, loss, losses = step(state, x, gts)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counts, before)] == [0, 0, 3]
+    assert state.step == 1 and bool(torch.isfinite(losses).all())
+    assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+               for p in model.parameters())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,d,nh,tkv", [
     (2, 88, 88, 64, 1, 121),   # stage 1 of PVTv2-b2 at 352x352, batch 2
