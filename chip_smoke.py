@@ -18,12 +18,14 @@
    forwards no longer call, at the shape it had; the standalone gate, the
    forward of the gate's autograd Function and so the training path's
    kernel, at the train step's shapes in float32, bf16 and float64.
-3. Serves five paths of the port (full width and depth, random weights
+3. Serves eight paths of the port (full width and depth, random weights
    from a seed), in bf16 at 352x352, batch 16: PraNet-V2 on Res2Net-50, the
-   same with its fused Res2Net blocks (``fused=True, tailfuse=True``), and
+   same with its fused Res2Net blocks (``fused=True, tailfuse=True``),
    PraNet-V2 on PVTv2-b2 with its default kernels, with the whole-half
    attention (``attn_impl="v2"``) and with the whole-block kernel
-   (``blockfuse=True``); each through ``serve.BinaryPredictor.stream``
+   (``blockfuse=True``), and PraNet-V1 on Res2Net-50, PVTv2-b2 and
+   ResNet-50 (no decoder kernel: V1's reverse attention and resizes are
+   ATen; the finest map served); each through ``serve.BinaryPredictor.stream``
    over seeded synthetic images, with the kernels' launch counters set to 0
    just before and read just after; times the forward alone (CUDA events),
    its device time by kernel (torch.profiler) and the host stages of one
@@ -43,7 +45,13 @@
    device busy time; and 4 steps on a fixed batch of pranet_v2 in bf16
    (autocast) and of pvt_pranet_v2 with drop path 0.1.  Each part prints a
    ``train:`` JSON line beside the card's name and power limit.
-5. Prints one JSON line of kernel results (``launches`` summed over the
+5. Runs the binary inference CLIs as a user does, each in its own
+   process (``run_cli``): ``cli.test_binary`` on a reference-style
+   ``pranet_v1`` checkpoint over two synthetic sets, ``cli.eval_binary`` on
+   its PNGs and ``cli.benchmark`` (pranet_v1 and pranet_v1_resnet, batch 1
+   and 16); prints a ``cli:`` JSON line beside the card and the
+   benchmark's table.
+6. Prints one JSON line of kernel results (``launches`` summed over the
    served paths and the training parts), then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1170,6 +1178,8 @@ _NO_RES2 = {"fused_bottle2neck": 0, "fused_tail": 0}
 _TAIL = {"max_pool3x3s2": 0, "dsra_gate": 0, "dsra_level": 3,
          "depthwise_conv3x3": 0}
 _PVT = {**_TAIL, "stem_pool": 0, **_NO_RES2}
+# PraNet-V1 has no DSRA gate: its reverse attention and resizes are ATen
+_V1 = {**_TAIL, "dsra_level": 0}
 PATHS = {
     "pranet_v2": ("pranet_v2", {}, {**_TAIL, "stem_pool": 1, **_NO_RES2,
                                     **_NO_PVT}),
@@ -1184,13 +1194,23 @@ PATHS = {
                                "sra_block": 16}),
     "pvt_pranet_v2_blockfuse": ("pvt_pranet_v2", {"blockfuse": True},
                                 {**_PVT, **_NO_PVT, "pvt_block": 16}),
+    "pranet_v1": ("pranet_v1", {}, {**_V1, "stem_pool": 1, **_NO_RES2,
+                                    **_NO_PVT}),
+    "pvt_pranet_v1": ("pvt_pranet_v1", {}, {**_V1, "stem_pool": 0,
+                                            **_NO_RES2, **_NO_PVT,
+                                            "mlp_block": 16,
+                                            "sra_attention": 16}),
+    "pranet_v1_resnet": ("pranet_v1_resnet", {}, {**_V1, "stem_pool": 1,
+                                                  **_NO_RES2, **_NO_PVT}),
 }
 _NO_MLP = {"plain": 0, "stats": 0, "final_ln": 0}
 MLP_MODES = {"pranet_v2": _NO_MLP, "pranet_v2_fused": _NO_MLP,
              "pvt_pranet_v2": {"plain": 0, "stats": 12, "final_ln": 4},
              "pvt_pranet_v2_attn_v2": {"plain": 12, "stats": 0,
                                        "final_ln": 4},
-             "pvt_pranet_v2_blockfuse": _NO_MLP}
+             "pvt_pranet_v2_blockfuse": _NO_MLP, "pranet_v1": _NO_MLP,
+             "pvt_pranet_v1": {"plain": 0, "stats": 12, "final_ln": 4},
+             "pranet_v1_resnet": _NO_MLP}
 
 
 def _wrappers():
@@ -1222,7 +1242,7 @@ def _launch_counts() -> dict:
 def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
     """Serve the synthetic images on path ``label``; count launches over
     exactly that run."""
-    from pranet2_tpu_torch.serve import BinaryPredictor
+    from pranet2_tpu_torch.serve import BinaryPredictor, served_logits
 
     name, kwargs, launches = PATHS[label]
     images = synthetic_images(np, N_IMAGES)
@@ -1254,9 +1274,10 @@ def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
         batch = pred._preprocess(images[:BATCH]).to(pred.device)
         with torch.inference_mode():
             fwd_ms = time_ms(lambda: pred.model(batch), reps=10, rounds=5)
-            logits = sum(pred.model(batch)[:4]).float()
+            logits = served_logits(pred.model(batch), pred.v2).float()
             device = device_time(torch, lambda: pred.model(batch))
-            replaced = replaced_ops(torch, lambda: pred.model(batch))
+            replaced = replaced_ops(torch, lambda: pred.model(batch),
+                                    tail=launches["dsra_level"] > 0)
         if replaced:
             raise AssertionError(f"{label}: the forward still runs ops the "
                                  f"stem and decoder kernels replaced: "
@@ -1299,10 +1320,11 @@ STEM_OPS = ("aten::batch_norm", "aten::relu", "aten::relu_",
 TAIL_OPS = ("aten::upsample_bilinear2d", "aten::_to_copy")
 
 
-def replaced_ops(torch, fn) -> dict:
+def replaced_ops(torch, fn, tail: bool = True) -> dict:
     """Counts of the ATen ops of one forward (a CPU-side trace with input
     shapes) that the stem and decoder kernels replaced; a served forward
-    must have none."""
+    must have none.  ``tail=False`` (PraNet-V1, whose decoder resizes its
+    one-channel maps in ATen) looks for the stem's only."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1316,7 +1338,7 @@ def replaced_ops(torch, fn) -> dict:
     for e in prof.events():
         first = list(e.input_shapes[0]) if e.input_shapes else []
         if ((e.name in STEM_OPS and first == stem)
-                or (e.name in TAIL_OPS and len(first) == 4
+                or (tail and e.name in TAIL_OPS and len(first) == 4
                     and first[1] == 1)):
             key = f"{e.name} {first}"
             found[key] = found.get(key, 0) + 1
@@ -1368,6 +1390,7 @@ def check_reference(torch, name, state_dict, batch, logits_bf16) -> dict:
     is the module chain, so the first check holds the fused Res2Net and the
     PVT bf16 kernels end to end against code that does not use them."""
     from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.serve import is_v2, served_logits
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1378,7 +1401,7 @@ def check_reference(torch, name, state_dict, batch, logits_bf16) -> dict:
     cpu.load_state_dict(state_dict)
     cpu.eval()
     with torch.inference_mode():
-        logits = sum(f32(batch)[:4]).float()
+        logits = served_logits(f32(batch), is_v2(name)).float()
         small = batch[:2, :, :64, :64]
         gpu_maps, cpu_maps = f32(small), cpu(small.cpu())
     for t in (logits, logits_bf16):
@@ -1663,6 +1686,97 @@ def run_training(torch, np, dev, card) -> dict:
             "train_pvt": {"dsra_gate": pvt["dsra_gate_launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# the binary inference CLIs, each in its own process, as a user runs them
+# ---------------------------------------------------------------------------
+
+CLI_SETS, CLI_IMAGES = ("SYN1", "SYN2"), 8
+CLI_BENCH = ("--models", "pranet_v1", "pranet_v1_resnet", "--batch_sizes",
+             "1", "16", "--iters", "10", "--windows", "3")
+
+
+def _cli(module: str, *args) -> tuple[str, float]:
+    """``python -m pranet2_tpu_torch.cli.<module> args`` from the checkout;
+    its standard output and wall seconds.  Fails on a non-zero exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        f"pranet2_tpu_torch.cli.{module}", *args], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"cli.{module} exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def run_cli(torch, np) -> dict:
+    """The binary CLIs on the card: random ``pranet_v1`` weights saved as a
+    reference checkpoint (a ``state_dict`` container, ``module.`` keys, a
+    stray ``resnet.fc.weight``); ``cli.test_binary`` exports two synthetic
+    sets of 8 images (float32, 352, batch 16), ``cli.eval_binary`` scores
+    its PNGs, ``cli.benchmark`` times pranet_v1 and pranet_v1_resnet (bf16,
+    batch 1 and 16, 3 windows of 10 forwards).  Checks the PNGs' count and
+    sizes, the dropped key's report, finite metrics and every table row."""
+    from PIL import Image
+
+    from pranet2_tpu_torch import get_model
+
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "TestDataset")
+        for k, ds in enumerate(CLI_SETS):
+            write_polyp_set(np, os.path.join(data, ds), CLI_IMAGES,
+                            seed=10 + k)
+        sd = get_model("pranet_v1", device="cpu",
+                       generator=torch.Generator().manual_seed(3)).state_dict()
+        sd = {f"module.{k}": v for k, v in sd.items()}
+        sd["module.resnet.fc.weight"] = torch.zeros((1000, 2048))
+        pth = os.path.join(root, "pranet_v1.pth")
+        torch.save({"state_dict": sd, "epoch": 1}, pth)
+        results = os.path.join(root, "results")
+        out, test_s = _cli("test_binary", "--model", "pranet_v1",
+                           "--checkpoint", pth, "--data_root", data,
+                           "--save_root", results, "--datasets", *CLI_SETS)
+        if "'resnet.fc.weight'" not in out:
+            raise AssertionError(f"test_binary: no dropped key reported: "
+                                 f"{out}")
+        for ds in CLI_SETS:
+            pngs = sorted(os.listdir(os.path.join(results, "pranet_v1", ds)))
+            if len(pngs) != CLI_IMAGES:
+                raise AssertionError(f"test_binary: {len(pngs)} maps in {ds}")
+            for f in pngs:
+                pred = np.asarray(Image.open(os.path.join(
+                    results, "pranet_v1", ds, f)))
+                gt = np.asarray(Image.open(os.path.join(data, ds, "masks",
+                                                        f)))
+                if pred.dtype != np.uint8 or pred.shape != gt.shape:
+                    raise AssertionError(f"test_binary: {ds}/{f} is "
+                                         f"{pred.shape} {pred.dtype}")
+        csvs = os.path.join(root, "eval")
+        eval_out, eval_s = _cli("eval_binary", "--pred_root",
+                                os.path.join(results, "pranet_v1"),
+                                "--gt_root", data, "--datasets", *CLI_SETS,
+                                "--result_path", csvs)
+        metrics = {}
+        for ds in CLI_SETS:
+            with open(os.path.join(csvs, f"result_{ds}.csv")) as f:
+                head, row = f.read().splitlines()
+            metrics[ds] = dict(zip(head.split(", ")[1:], map(
+                float, row.rstrip(",").split(",")[1:])))
+            if not all(math.isfinite(v) for v in metrics[ds].values()):
+                raise AssertionError(f"eval_binary: {metrics}")
+    bench_out, bench_s = _cli("benchmark", *CLI_BENCH)
+    rows = [ln.split() for ln in bench_out.splitlines()
+            if ln.startswith("pranet_v1")]
+    if sorted((r[0], r[1]) for r in rows) != sorted(
+            (m, b) for m in ("pranet_v1", "pranet_v1_resnet")
+            for b in ("1", "16")) or not all(float(r[2]) > 0 for r in rows):
+        raise AssertionError(f"benchmark: table rows {rows}")
+    return {"test_binary_s": test_s, "eval_binary_s": eval_s,
+            "benchmark_s": bench_s, "pngs": CLI_IMAGES * len(CLI_SETS),
+            "metrics": metrics, "eval_table": eval_out.splitlines(),
+            "benchmark_table": bench_out.splitlines()}
+
+
 def main() -> int:
     import torch
 
@@ -1719,6 +1833,9 @@ def main() -> int:
         print("model: " + json.dumps(model))
         models.append(model)
     train_runs = run_training(torch, np, dev, card)
+    cli = run_cli(torch, np)
+    print("cli: " + json.dumps({"card": card, **cli}))
+    print("\n".join(cli["benchmark_table"]))
     for k in kernels:
         by_path = {m["model"]: m["launches"][k["name"]] for m in models}
         by_path.update({label: counts.get(k["name"], 0)

@@ -1,8 +1,8 @@
 """Shared building blocks (NCHW), named after the reference's torch modules.
 
 Port of ``pranet2_tpu/nn.py``: ``ConvBN`` (the reference's ``BasicConv2d``),
-``RFB``, the dual-head ``PartialDecoder`` and ``DropPath`` (stochastic
-depth).  BatchNorm is
+``RFB``, the ``PartialDecoder`` (dual-head, or V1's single head) and
+``DropPath`` (stochastic depth).  BatchNorm is
 ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  The JAX package's ``decdot``
 and ``splitconv`` paths are TPU layout rewrites of the same convolutions and
 are not carried over.
@@ -114,22 +114,28 @@ class RFB(nn.Module):
 
 
 class PartialDecoder(nn.Module):
-    """Cascaded partial decoder with dual fg/bg heads (PraNet-V2).
+    """Cascaded partial decoder: dual fg/bg heads (PraNet-V2), or with
+    ``num_class=None`` the single 1-channel head ``conv5`` of PraNet-V1
+    (``pranet2_tpu/nn.py:293-295``).
 
     Takes the three RFB maps deepest-first (1/32, 1/16, 1/8 scale).  The
     internal x2 upsamples are bilinear with ``align_corners=True``.
     """
 
-    def __init__(self, c: int, num_class: int):
+    def __init__(self, c: int, num_class: int | None):
         super().__init__()
+        self.single = num_class is None
         for i in range(1, 5):
             setattr(self, f"conv_upsample{i}", ConvBN(c, c, 3, padding=1))
         self.conv_upsample5 = ConvBN(2 * c, 2 * c, 3, padding=1)
         self.conv_concat2 = ConvBN(2 * c, 2 * c, 3, padding=1)
         self.conv_concat3 = ConvBN(3 * c, 3 * c, 3, padding=1)
         self.conv4 = ConvBN(3 * c, 3 * c, 3, padding=1)
-        self.conv5_fg = nn.Conv2d(3 * c, num_class, 1)
-        self.conv5_bg = nn.Conv2d(3 * c, num_class, 1)
+        if self.single:
+            self.conv5 = nn.Conv2d(3 * c, 1, 1)
+        else:
+            self.conv5_fg = nn.Conv2d(3 * c, num_class, 1)
+            self.conv5_bg = nn.Conv2d(3 * c, num_class, 1)
 
     def forward(self, x1, x2, x3):
         def up2(t):
@@ -144,6 +150,8 @@ class PartialDecoder(nn.Module):
         x3_2 = self.conv_concat3(
             torch.cat([x3_1, self.conv_upsample5(up2(x2_2))], 1))
         x = self.conv4(x3_2)
+        if self.single:
+            return self.conv5(x)
         return self.conv5_fg(x), self.conv5_bg(x)
 
 

@@ -22,6 +22,10 @@ for bf16 and f32 inputs, float64 for float64 ones, as JAX under x64.  The
 gate's kernel has a float64 instance with its softmax in double, so that a
 float64 train step runs through it on the card; ``dsra_level`` takes
 float32, bf16 and float16 only.
+
+``reverse_attention`` is PraNet-V1's gate, ``(1 - sigmoid(crop)) * feat``;
+in the JAX package it is XLA elementwise code, not a Pallas kernel, so here
+it is plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -46,6 +50,13 @@ def dsra_gate_plain(fg: torch.Tensor, crop_fg: torch.Tensor,
                                                       torch.float32))
     gate = torch.softmax(diff, dim=1) if use_softmax else diff
     return fg + fg * gate.to(fg.dtype)
+
+
+def reverse_attention(crop: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+    """PraNet-V1 reverse attention, ``(1 - sigmoid(crop)) * feat``: crop
+    (N, 1, H, W) logits broadcast over feat's (N, C, H, W) channels
+    (``pranet2_tpu/ops/dsra.py:58``)."""
+    return (1.0 - torch.sigmoid(crop)) * feat
 
 
 @functools.cache

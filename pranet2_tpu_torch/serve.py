@@ -1,9 +1,10 @@
-"""Serving API: a fixed-shape batched predictor for PraNet-V2 inference.
+"""Serving API: a fixed-shape batched predictor for PraNet inference.
 
 Port of ``pranet2_tpu/serve.py::BinaryPredictor`` (single device).  Images
 (H x W x 3 uint8, any native size) go in; uint8 masks at each image's native
-size come out, with the reference export's semantics.  Partial batches are
-padded with zeros to the fixed batch size.
+size come out, with the reference export's semantics: the sum of the four
+fg maps for a V2 model (``*_v2``), the finest map (``outs[3]``) for a V1
+model.  Partial batches are padded with zeros to the fixed batch size.
 """
 
 from __future__ import annotations
@@ -23,8 +24,28 @@ from pranet2_tpu_torch.models import get_model
 from pranet2_tpu_torch.ops.resize import resize_bilinear_np
 
 
+def is_v2(model_name: str) -> bool:
+    """Whether ``model_name`` is a PraNet-V2 model (``*_v2``): V2 models
+    take ``num_class`` and are served the sum of their four fg maps; V1
+    models take no ``num_class`` and are served their finest map."""
+    return model_name.endswith("_v2")
+
+
+def head_kwargs(model_name: str) -> dict:
+    """The ``get_model`` keyword arguments of a served binary model:
+    ``num_class=1`` for V2, none for V1."""
+    return {"num_class": 1} if is_v2(model_name) else {}
+
+
+def served_logits(outs, v2: bool) -> torch.Tensor:
+    """The logits a binary model serves: V2's four fg maps summed
+    (``outs[:4]``), V1's finest map (``outs[3]``; V1 returns its maps
+    coarse-first)."""
+    return (outs[0] + outs[1] + outs[2] + outs[3]) if v2 else outs[3]
+
+
 class BinaryPredictor:
-    """Batched PraNet-V2 predictor: HxWx3 uint8 images in, uint8 masks out."""
+    """Batched PraNet predictor: HxWx3 uint8 images in, uint8 masks out."""
 
     def __init__(self, model_name: str, state_dict, batch_size: int = 16,
                  testsize: int = 352, dtype: torch.dtype | None = None,
@@ -50,8 +71,10 @@ class BinaryPredictor:
         Res2Net blocks.
         """
         self.device = resolve(device)
+        self.v2 = is_v2(model_name)
         self.model = get_model(model_name, device=self.device, dtype=dtype,
-                               num_class=1, **(model_kwargs or {}))
+                               **head_kwargs(model_name),
+                               **(model_kwargs or {}))
         self.model.load_state_dict(state_dict)
         self.model.eval()
         self.batch_size = batch_size
@@ -70,8 +93,7 @@ class BinaryPredictor:
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = self.model(x)
-        logits = outs[0] + outs[1] + outs[2] + outs[3]
+        logits = served_logits(self.model(x), self.v2)
         if self.exact_postproc:
             return logits.float()
         p = torch.sigmoid(logits.float())

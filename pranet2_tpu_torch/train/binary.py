@@ -1,4 +1,4 @@
-"""PraNet-V2 binary training and inference loops, on one device.
+"""PraNet-V2 binary training, and PraNet inference loops, on one device.
 
 Port of ``pranet2_tpu/train/binary.py``.  The recipe reproduces
 ``binary_seg/MyTrain_med.py``: multi-scale training at rates 0.75, 1 and
@@ -47,6 +47,7 @@ from pranet2_tpu_torch.losses.binary import _boundary_weight
 from pranet2_tpu_torch.models import get_model
 from pranet2_tpu_torch.nn import DropPath
 from pranet2_tpu_torch.ops import resize_bilinear, resize_bilinear_np
+from pranet2_tpu_torch.serve import is_v2, served_logits
 from pranet2_tpu_torch.train.optim import make_optimizer, step_decay_schedule
 from pranet2_tpu_torch.train.state import TrainState
 from pranet2_tpu_torch.utils.checkpoint import save_state
@@ -157,7 +158,14 @@ def train(cfg: BinaryTrainConfig, dataset=None, eval_fn=None, log=print):
     ``eval_fn(model, state)`` scores an epoch (higher is better); ``model``
     holds the state's weights in the run's compute type.  The epoch loop
     keeps the reference's ``range(1, epochs)``: ``epochs - 1`` epochs.
+
+    The recipe trains PraNet-V2 models only, as the JAX package's (whose
+    ``get_model(name, num_class=1)`` refuses a V1 model): a V1 name raises
+    ``TypeError`` before any data is read.
     """
+    if not is_v2(cfg.model):
+        raise TypeError(f"{cfg.model}: the binary recipe trains PraNet-V2 "
+                        f"models only (pranet_v2, pvt_pranet_v2)")
     dev = resolve(cfg.device)
     compute = _compute_dtype(cfg.dtype)
     dataset = dataset or PolypDataset(
@@ -242,10 +250,7 @@ def make_predict_fn(model: nn.Module, v2: bool = True):
         model.eval()
         with torch.inference_mode():
             # contiguous NCHW: the stem and decoder kernels take no other
-            outs = model(images.to(dev).contiguous())
-            if v2:
-                return outs[0] + outs[1] + outs[2] + outs[3]
-            return outs[3]
+            return served_logits(model(images.to(dev).contiguous()), v2)
 
     return fwd
 

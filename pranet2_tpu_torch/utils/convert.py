@@ -1,29 +1,42 @@
-"""Carry weights from the JAX package's flax variables into the port.
+"""Carry weights into the port: from the JAX package's flax variables, or
+from a reference ``.pth``.
 
 ``state_dict_from_jax`` takes a ``{'params': ..., 'batch_stats': ...}`` tree
 of numpy arrays and returns the port's ``state_dict``: conv kernels HWIO ->
 OIHW, Dense kernels (in, out) -> Linear (out, in), BatchNorm and LayerNorm
 ``scale/bias`` -> ``weight/bias`` and BatchNorm ``mean/var`` ->
 ``running_mean/running_var``.  The names are the inverse of the JAX
-package's ``res2net_key_map``, ``pvtv2_key_map`` and ``pranet_key_map``;
-the port keeps the reference checkpoint's names, so a reference ``.pth``
-loads with plain ``load_state_dict``.
+package's ``res2net_key_map``, ``resnet_key_map``, ``pvtv2_key_map`` and
+``pranet_key_map``; the port keeps the reference checkpoint's names, so a
+reference ``.pth`` loads with plain ``load_state_dict``.  The JAX package
+calls every encoder ``backbone``; the reference (and so the port) calls
+PraNet-V1's Res2Net and ResNet encoders ``resnet`` (the model's
+``encoder_name``), which ``encoder=`` renames.
+
+``load_reference_state_dict`` reads a reference ``.pth`` (the port's copy
+of ``pranet2_tpu/utils/torch_convert.py::load_torch_state_dict``) and
+``load_reference`` loads it into a model, dropping and reporting the keys
+that the JAX package's key maps drop too (classifier heads, thop's
+counters).
 """
 
 from __future__ import annotations
 
+import logging
 import re
 
 import numpy as np
 import torch
 from torch import nn
 
+log = logging.getLogger(__name__)
+
 # flax path (joined with '.') -> torch prefix, applied in order
 _RENAMES = (
     (r"^stem_conv$", "conv.0"),
     (r"^stem_bn$", "conv.1"),
     (r"^backbone\.conv1_(\d)$", r"backbone.conv1.\1"),
-    (r"\.layer(\d)_(\d+)\.", r".layer\1.\2."),
+    (r"(^|\.)layer(\d)_(\d+)\.", r"\1layer\2.\3."),
     (r"\.(convs|bns|downsample)_(\d)$", r".\1.\2"),
     (r"\.branch(\d)_(\d)\.", r".branch\1.\2."),
     (r"^ra([234])\.", r"ra\1_"),
@@ -49,11 +62,19 @@ def _flatten(tree, path=()):
             yield path + (k,), np.asarray(v)
 
 
-def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
-    """flax ``{'params', 'batch_stats'}`` tree -> the port's ``state_dict``."""
+def state_dict_from_jax(variables, encoder: str = "backbone"
+                        ) -> dict[str, torch.Tensor]:
+    """flax ``{'params', 'batch_stats'}`` tree -> the port's ``state_dict``,
+    the tree's ``backbone`` named ``encoder``."""
+    def prefix_of(path):
+        name = torch_prefix(path)
+        if name.startswith("backbone."):
+            name = encoder + name[len("backbone"):]
+        return name
+
     sd = {}
     for path, leaf in _flatten(variables["params"]):
-        prefix, kind = torch_prefix(path[:-1]), path[-1]
+        prefix, kind = prefix_of(path[:-1]), path[-1]
         if kind == "kernel":
             axes = (3, 2, 0, 1) if leaf.ndim == 4 else (1, 0)
             sd[f"{prefix}.weight"] = np.transpose(leaf, axes)
@@ -64,7 +85,7 @@ def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
     for path, leaf in _flatten(variables.get("batch_stats", {})):
-        prefix, kind = torch_prefix(path[:-1]), path[-1]
+        prefix, kind = prefix_of(path[:-1]), path[-1]
         stat = {"mean": "running_mean", "var": "running_var"}[kind]
         sd[f"{prefix}.{stat}"] = leaf
         sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
@@ -73,17 +94,75 @@ def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
 
 
 def load_jax_variables(model: nn.Module, variables) -> nn.Module:
-    """Load a flax tree into ``model``.
+    """Load a flax tree into ``model`` (its encoder named by the model's
+    ``encoder_name``, ``backbone`` when it has none).
 
     Every key of the tree must land, and every parameter of the model must
-    be given, except the grayscale stem (``conv.*``), which the reference
-    always defines but a JAX tree holds only when it was initialised on
-    1-channel input.
+    be given, except a grayscale stem (PraNet-V2's ``conv.*``), which the
+    reference always defines but a JAX tree holds only when it was
+    initialised on 1-channel input.
     """
     missing, unexpected = model.load_state_dict(
-        state_dict_from_jax(variables), strict=False)
-    missing = [k for k in missing if not k.startswith("conv.")]
+        state_dict_from_jax(variables,
+                            getattr(model, "encoder_name", "backbone")),
+        strict=False)
+    if isinstance(getattr(model, "conv", None), nn.Sequential):
+        missing = [k for k in missing if not k.startswith("conv.")]
     if missing or unexpected:
         raise KeyError(f"flax tree does not fit the model: missing {missing}, "
                        f"unexpected {unexpected}")
     return model
+
+
+def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A reference ``.pth`` as a flat ``state_dict`` on the CPU.
+
+    ``torch.load(weights_only=True)``; the ``state_dict`` / ``model`` /
+    ``net`` / ``model_state_dict`` container unwrapped; the ``module.``
+    prefix that ``nn.DataParallel`` puts on every key stripped; only
+    tensors kept.
+    """
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("state_dict", "model", "net", "model_state_dict"):
+        if (isinstance(sd, dict) and wrapper in sd
+                and isinstance(sd[wrapper], dict)):
+            sd = sd[wrapper]
+            break
+    out = {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    if out and all(k.startswith("module.") for k in out):
+        out = {k[len("module."):]: v for k, v in out.items()}
+    return out
+
+
+# keys of a reference checkpoint that no model of the port holds and the JAX
+# package's key maps drop too (torch_convert.py:140,151,206): classifier
+# heads, the average pool and thop's profiling counters
+_DROPPED = re.compile(r"(^|\.)(fc|head|avgpool)\.[^.]+$"
+                      r"|(^|\.)(total_ops|total_params)$")
+
+
+def load_reference(model: nn.Module, state_dict) -> list[str]:
+    """Load a reference ``state_dict`` into ``model``; returns the keys it
+    dropped (also logged as a warning).
+
+    A key the model does not hold is dropped where the JAX package's key
+    maps drop it too, and is an error otherwise; a parameter or buffer of
+    the model that the checkpoint lacks is an error, except
+    ``num_batches_tracked``, which eval never reads.
+    """
+    own = model.state_dict()
+    dropped = sorted(k for k in state_dict
+                     if k not in own and _DROPPED.search(k))
+    unexpected = sorted(k for k in state_dict
+                        if k not in own and k not in dropped)
+    missing = sorted(k for k in own if k not in state_dict
+                     and not k.endswith("num_batches_tracked"))
+    if missing or unexpected:
+        raise KeyError(f"checkpoint does not fit the model: missing "
+                       f"{missing[:10]}, unexpected {unexpected[:10]}")
+    model.load_state_dict({k: v for k, v in state_dict.items() if k in own},
+                          strict=False)
+    if dropped:
+        log.warning("load_reference: dropped %d keys the model does not "
+                    "hold: %s", len(dropped), dropped)
+    return dropped

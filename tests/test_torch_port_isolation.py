@@ -30,6 +30,11 @@ def test_import_pulls_in_no_jax():
             "import pranet2_tpu_torch.evalx, pranet2_tpu_torch.data\n"
             "import pranet2_tpu_torch.utils.checkpoint\n"
             "import pranet2_tpu_torch.cli.train_binary\n"
+            "import pranet2_tpu_torch.cli.test_binary\n"
+            "import pranet2_tpu_torch.cli.eval_binary\n"
+            "import pranet2_tpu_torch.cli.benchmark\n"
+            "import pranet2_tpu_torch.utils.profiling\n"
+            "import pranet2_tpu_torch.models.backbones.resnet\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

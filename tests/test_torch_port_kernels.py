@@ -995,3 +995,102 @@ def test_pvt_pranet_v2_options_reach_the_kernels(no_tf32, kw, launches):
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         assert ((g.float() - w).abs().max() / w.abs().max()).item() < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pranet_v1", "pvt_pranet_v1",
+                                  "pranet_v1_resnet"])
+def test_v1_forward_on_the_card_matches_cpu(no_tf32, name):
+    """PraNet-V1 at full depth, 96x96: float32 on the card (``stem_pool``
+    on the Res2Net and ResNet stems, PVT's float32 blocks on the module
+    chain) against the CPU's plain versions within 1e-3 of the largest
+    |map|; bf16 (PVT's blocks on the attention and MLP kernels) within 0.1
+    of float32; no decoder kernel (V1 has no DSRA gate)."""
+    cpu = get_model(name, device="cpu").eval()
+    gpu = get_model(name, device=no_tf32).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    low = get_model(name, device=no_tf32, dtype=torch.bfloat16).eval()
+    low.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 3, 96, 96), generator=torch.Generator().manual_seed(1))
+    counters = (stem.stem_pool, dsra.dsra_level, dsra.dsra_gate,
+                pvt_attn.sra_attention, pvt_mlp.mlp_block)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        want, got = cpu(x), gpu(x.to(no_tf32))
+        got_bf16 = low(x.to(no_tf32))
+    pvt = name == "pvt_pranet_v1"
+    assert tuple(f.launches - b for f, b in zip(counters, before)) == (
+        (0, 0, 0, 16, 16) if pvt else (2, 0, 0, 0, 0))
+    assert len(got) == len(want) == len(got_bf16) == 4
+    for g, w, b in zip(got, want, got_bf16):
+        assert ((g.cpu() - w).abs().max() / w.abs().max()).item() < 1e-3
+        assert ((b.float() - g).abs().max() / g.abs().max()).item() < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,launches", [
+    ("pranet_v1", {"fused": True, "tailfuse": True}, (1, 12, 4, 0, 0, 0)),
+    ("pvt_pranet_v1", {"attn_impl": "v2"}, (0, 0, 0, 16, 16, 0)),
+    ("pvt_pranet_v1", {"blockfuse": True}, (0, 0, 0, 0, 0, 16)),
+], ids=["fused_res2net", "attn_impl_v2", "blockfuse"])
+def test_v1_backbone_options_reach_the_kernels(no_tf32, name, kw, launches):
+    """The backbone's keyword arguments reach V1's encoder as V2's: bf16,
+    64x64, the (stem_pool, fused_bottle2neck, fused_tail, sra_block,
+    mlp_block, pvt_block) launches of one forward, and the maps within 0.1
+    of the float32 module chain's."""
+    ref = get_model(name, device=no_tf32).eval()
+    model = get_model(name, device=no_tf32, dtype=torch.bfloat16,
+                      **kw).eval()
+    model.load_state_dict(ref.state_dict())
+    x = torch.randn((2, 3, 64, 64), device=no_tf32)
+    counters = (stem.stem_pool, res2_block.fused_bottle2neck,
+                res2_tail.fused_tail, pvt_attn.sra_block, pvt_mlp.mlp_block,
+                pvt_block)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        got = model(x)
+        counts = tuple(f.launches - b for f, b in zip(counters, before))
+        want = ref(x)
+    assert counts == launches
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert ((g.float() - w).abs().max() / w.abs().max()).item() < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet_stem_pool_is_exact_on_the_card(no_tf32, dtype):
+    """ResNet-50's stem tail at the serving shape (64 x 176 x 176, batch 2)
+    with a random bn1: served (autograd off) it is one ``stem_pool``
+    launch, bit-equal to ``F.max_pool2d(relu(bn1(z)))`` with bn1 applied
+    as its fold (``fold_bn``: ``z * s + t`` in float32, rounded once);
+    against the autograd route's ATen BatchNorm, which rounds its own way,
+    within float32 rounding (bf16: one step) of the largest |value|."""
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.models.backbones.resnet import resnet
+
+    g = torch.Generator(device=no_tf32).manual_seed(4)
+    net = resnet("resnet50").to(no_tf32).eval()
+    bn = net.bn1
+    with torch.no_grad():
+        for v, lo in ((bn.weight, 0.5), (bn.running_var, 0.5)):
+            v.copy_(torch.rand(v.shape, generator=g, device=no_tf32) + lo)
+        for v in (bn.bias, bn.running_mean):
+            v.copy_(torch.randn(v.shape, generator=g, device=no_tf32) * 0.1)
+    z = torch.randn((2, 64, 176, 176), generator=g, device=no_tf32).to(dtype)
+    before = stem.stem_pool.launches
+    with torch.no_grad():
+        got = net.stem_tail(z)
+        assert stem.stem_pool.launches == before + 1
+        s, t = res2_tail.fold_bn(bn.weight, bn.bias, bn.running_mean,
+                                 bn.running_var, bn.eps)
+        folded = torch.relu(z.float() * s[:, None, None]
+                            + t[:, None, None]).to(dtype)
+        torch.testing.assert_close(got, F.max_pool2d(folded, 3, 2, 1),
+                                   rtol=0, atol=0)
+    chain = net.stem_tail(z)            # autograd on: the module chain
+    assert stem.stem_pool.launches == before + 1
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    assert ((got.float() - chain.float()).abs().max()
+            / chain.float().abs().max()).item() <= tol
