@@ -51,7 +51,24 @@
    its PNGs and ``cli.benchmark`` (pranet_v1 and pranet_v1_resnet, batch 1
    and 16); prints a ``cli:`` JSON line beside the card and the
    benchmark's table.
-6. Prints one JSON line of kernel results (``launches`` summed over the
+6. The multiclass phase (``run_emcad_path``, ``run_multiclass_training``,
+   ``run_multiclass_cli``): EMCAD served on PVTv2-b2 and on ResNet-50
+   (bf16, 9 classes, random weights from seed 0) over one synthetic
+   CT-sized volume (48 slices of 512^2, labels 0-8) through
+   ``train.multiclass.test_volumes`` (host zoom to 224, chunks of 16,
+   ``fg_only``), with the launch counters set to 0 just before and read
+   just after; the forward timed (CUDA events) with its device time by
+   kernel, the host's zoom of a chunk and the volume's wall time; its bf16
+   logits against float32 (TF32 off) and the card's float32 maps against
+   the CPU's.  Then ``train_multiclass`` on EMCAD-B2 (float32, batch 6 at
+   224, 8 steps over 12 synthetic Synapse slices, validated on an
+   ACDC-layout split) with its launches, ms a step, img/s, peak memory
+   and busy time; then ``cli.train_multiclass`` (``pvt_v2_b0``, one epoch)
+   and ``cli.test_multiclass --dataset acdc`` (a reference-style
+   ``.pth``), each in its own process.  Rows 1, 2, 5 and 6 are held
+   against their plain versions at EMCAD's shapes in step 2 (the 112^2
+   stem map, the gates at 9 classes, the 224^2 PVT stages).
+7. Prints one JSON line of kernel results (``launches`` summed over the
    served paths and the training parts), then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +81,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -105,6 +123,14 @@ F32_TOL = 1e-3              # GPU f32 vs CPU f32, relative to max |CPU|;
 # by stage
 PVT_STAGES = ((88, 64, 1, 8, 8, 3), (44, 128, 2, 8, 4, 4),
               (22, 320, 5, 4, 2, 6), (11, 512, 8, 4, 1, 3))
+# EMCAD-B2 on Synapse (multiclass_seg/EMCAD/train_synapse.py): 9 classes,
+# 224x224 slices, batch 6 in training; served as volumes in chunks of 16
+EMCAD_SIZE, EMCAD_CLASSES, EMCAD_TRAIN_BATCH = 224, 9, 6
+EMCAD_GATE_SIDES = (14, 28, 56)   # the decoder's three gates at 224
+# PVTv2-b2 at 224x224, EMCAD's Synapse patch: the same stages, Tkv 49 at
+# each (sr 8/4/2/1 on 56/28/14/7-px maps)
+EMCAD_STAGES = ((56, 64, 1, 8, 8, 3), (28, 128, 2, 8, 4, 4),
+                (14, 320, 5, 4, 2, 6), (7, 512, 8, 4, 1, 3))
 # the depthwise 3x3 vs its plain version: float32 within 1e-5 of max |out|
 # (the same sums in the same order), bf16 one step (tol 0 in
 # testing.excess: each side's output rounding)
@@ -264,7 +290,9 @@ def check_maxpool(torch, dev) -> list:
     launch) and the bare ``max_pool3x3s2``, at the stem's serving shape,
     each bit for bit against its plain version.  ``stem_pool``'s library
     chain is what ATen ran before it, ``bn1`` (``F.batch_norm``), ReLU and
-    ``F.max_pool2d``; each of those passes is timed apart too."""
+    ``F.max_pool2d``; each of those passes is timed apart too.  Then
+    ``stem_pool`` at EMCAD-ResNet's stem (112^2 -> 56^2 at 224,
+    ``emcad_forward``)."""
     import torch.nn.functional as F
 
     from pranet2_tpu_torch.ops import stem
@@ -329,6 +357,11 @@ def check_maxpool(torch, dev) -> list:
         "library_ms": time_ms(library),
         "library_device_ms": kernel_ms(torch, library),
         "shapes": [{"shape": list(x.shape), "dtype": "bfloat16"}]}
+    stem_row["emcad_forward"] = _stem_pool_at(
+        torch, g, (BATCH, 64, EMCAD_SIZE // 2, EMCAD_SIZE // 2))
+    stem_row["shapes"].append({"shape": [BATCH, 64, EMCAD_SIZE // 2,
+                                         EMCAD_SIZE // 2],
+                               "dtype": "bfloat16", "path": "emcad"})
     print(f"stem_pool: ms {stem_row['ms']:.4f}, device "
           f"{stem_row['device_ms']:.4f}, host {stem_row['host_ms']:.4f}, "
           f"chain {stem_row['library_chain_ms']:.4f} (device "
@@ -437,8 +470,11 @@ def _check_gate_alone(torch, dev, g) -> dict:
     channel, the three levels at each scale) in float32, the recipe's type
     (its times are one batch's worth: nine calls), and in bf16; in float64
     at the 0.75 scale's shapes (the card-vs-CPU step's); then at the
-    serving levels' shapes (bf16, batch 16) and four channels.  Each
-    against ``dsra_gate_plain``: float32 and bf16 within ``GATE_TOL``
+    serving levels' shapes (bf16, batch 16) and four channels; then at
+    EMCAD's three gates (9 classes at 14, 28 and 56 px): bf16 at batch 16
+    (the served forward's, totalled as ``emcad_forward``), float32 at batch
+    6 (the train step's, ``emcad_train_step``), float32 and float64 at both.
+    Each against ``dsra_gate_plain``: float32 and bf16 within ``GATE_TOL``
     elementwise, float64 within ``F64_GATE_TOL`` of max |out|."""
     from pranet2_tpu_torch.ops import dsra
 
@@ -450,10 +486,22 @@ def _check_gate_alone(torch, dev, g) -> dict:
     cases += [((BATCH, 1, s, s), torch.bfloat16, False) for s in (44, 22, 11)]
     cases += [((BATCH, 4, 44, 44), dt, False)
               for dt in (torch.float32, torch.bfloat16)]
+    # EMCAD's three gates (its decoder's 14, 28 and 56 px at 224), nine
+    # classes: the bf16 serving forward (batch 16), the float32 train step
+    # (batch 6) and float64 (the step's in a float64 run)
+    emcad = [((n, EMCAD_CLASSES, s, s), dt, label)
+             for n, dt, label in ((BATCH, torch.bfloat16, "emcad_forward"),
+                                  (EMCAD_TRAIN_BATCH, torch.float32,
+                                   "emcad_train_step"),
+                                  (BATCH, torch.float32, None),
+                                  (BATCH, torch.float64, None),
+                                  (EMCAD_TRAIN_BATCH, torch.float64, None))
+             for s in EMCAD_GATE_SIDES]
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
              "host_ms": 0.0}
+    emcad_totals = {}
     shapes, worst, by = [], 0.0, "bytes"
-    for shape, dt, main_path in cases:
+    for shape, dt, main_path in cases + emcad:
         fg, cf, cb = (torch.randn(shape, generator=g, device=dev).to(dt)
                       for _ in range(3))
         got = dsra.dsra_gate(fg, cf, cb, True)
@@ -474,8 +522,10 @@ def _check_gate_alone(torch, dev, g) -> dict:
         b, by_ = bound_ms(4 * fg.numel() * fg.element_size(),
                           10 * fg.numel())
         kernel = lambda: dsra.dsra_gate(fg, cf, cb, True)
-        row = {"shape": list(shape), "dtype": name, "main_path": main_path,
-               "max_abs_err": err.max().item(),
+        row = {"shape": list(shape), "dtype": name,
+               "main_path": main_path is True,
+               "emcad_path": main_path if isinstance(main_path, str)
+               else None, "bound_by": by_, "max_abs_err": err.max().item(),
                "ms": time_ms(kernel), "device_ms": kernel_ms(torch, kernel),
                "host_ms": host_ms(torch, kernel),
                "plain_ms": time_ms(
@@ -483,10 +533,20 @@ def _check_gate_alone(torch, dev, g) -> dict:
                "bound_ms": b}
         shapes.append(row)
         worst = max(worst, row["max_abs_err"])
-        if main_path:
+        if main_path is True:
             by = by_
             for k in total:
                 total[k] += row[k]
+        elif main_path:
+            sums = emcad_totals.setdefault(main_path, dict.fromkeys(total,
+                                                                   0.0))
+            for k in total:
+                sums[k] += row[k]
+            sums["bound_by"] = by_
+    for label, sums in emcad_totals.items():
+        print(f"dsra_gate, EMCAD's three gates ({label}): ms "
+              f"{sums['ms']:.4f}, device {sums['device_ms']:.4f}, plain "
+              f"{sums['plain_ms']:.4f}, bound {sums['bound_ms']:.5f}")
     print(f"dsra_gate, a train batch's nine float32 calls: ms "
           f"{total['ms']:.4f}, device {total['device_ms']:.4f}, host "
           f"{total['host_ms']:.4f}, bound {total['bound_ms']:.5f}")
@@ -494,7 +554,7 @@ def _check_gate_alone(torch, dev, g) -> dict:
             "source": "pranet2_tpu_torch/csrc/dsra.cu",
             "replaces": "pranet2_tpu/ops/dsra.py:71",
             "max_abs_err": worst, **total, "bound_by": by,
-            "library_ms": None, "shapes": shapes}
+            "library_ms": None, **emcad_totals, "shapes": shapes}
 
 
 def _pvt_params(torch, g, dev, dt, shapes):
@@ -541,6 +601,19 @@ def _summary(name, source, replaces, rows):
             "library_ms": None, "shapes": rows}
 
 
+def _forward_sum(rows, flag: str) -> dict:
+    """One forward's worth of the rows marked ``flag``: each row's times
+    by the calls a forward makes at its shape."""
+    sel = [r for r in rows if r.get(flag)]
+    out = {k: sum(r[k] * r["calls_per_forward"] for r in sel)
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                     "library_chain_ms", "library_chain_device_ms")}
+    out["calls"] = sum(r["calls_per_forward"] for r in sel)
+    out["bound_by"] = max(sel, key=lambda r: r["bound_ms"])["bound_by"]
+    out["max_abs_err"] = max(r["max_abs_err"] for r in sel)
+    return out
+
+
 def check_pvt_mlp(torch, dev) -> dict:
     """``mlp_block`` at the four PVTv2-b2 stage shapes (bf16, stats and
     final_ln modes, plain mode at stages 1 and 3) and one float32 case,
@@ -551,19 +624,23 @@ def check_pvt_mlp(torch, dev) -> dict:
     The main-path times are one forward's worth of the default PVT path:
     each stage's stats-mode call times its non-last blocks plus its
     final_ln call (12 + 4); the plain rows are the ``attn_impl="v2"``
-    path's."""
+    path's.  The stats and final_ln rows at the 224^2 stages (EMCAD-B2's
+    forward) are totalled apart, as ``emcad_forward``."""
     import torch.nn.functional as F
 
     from pranet2_tpu_torch.ops import pvt_mlp
 
     g = torch.Generator(device=dev).manual_seed(2)
-    cases = [(si, dt, mode) for si in range(4) for dt in (torch.bfloat16,)
-             for mode in ("stats", "final_ln")]
-    cases += [(0, torch.bfloat16, "plain"), (2, torch.bfloat16, "plain"),
-              (1, torch.float32, "stats")]
+    cases = [(PVT_STAGES, si, dt, mode) for si in range(4)
+             for dt in (torch.bfloat16,) for mode in ("stats", "final_ln")]
+    cases += [(PVT_STAGES, 0, torch.bfloat16, "plain"),
+              (PVT_STAGES, 2, torch.bfloat16, "plain"),
+              (PVT_STAGES, 1, torch.float32, "stats")]
+    cases += [(EMCAD_STAGES, si, torch.bfloat16, mode) for si in range(4)
+              for mode in ("stats", "final_ln")]
     rows = []
-    for si, dt, mode in cases:
-        side, d, _, ratio, _, depth = PVT_STAGES[si]
+    for stages, si, dt, mode in cases:
+        side, d, _, ratio, _, depth = stages[si]
         c = d * ratio
         p = _pvt_params(torch, g, dev, dt, {
             "w_ln": (d,), "b_ln": (d,), "w1": (c, d), "b1": (c,),
@@ -610,9 +687,11 @@ def check_pvt_mlp(torch, dev) -> dict:
 
         calls = depth - 1 if mode != "final_ln" else 1
         kernel = lambda: pvt_mlp.mlp_block(*args, **kw)
+        emcad = stages is EMCAD_STAGES
         row = {"shape": list(x.shape), "hidden": c, "dtype": name,
-               "mode": mode,
-               "main_path": dt == torch.bfloat16 and mode != "plain",
+               "mode": mode, "emcad_path": emcad,
+               "main_path": (dt == torch.bfloat16 and mode != "plain"
+                             and not emcad),
                "calls_per_forward": calls, "max_abs_err": err,
                "excess": over, "ms": time_ms(kernel),
                "device_ms": kernel_ms(torch, kernel),
@@ -627,7 +706,8 @@ def check_pvt_mlp(torch, dev) -> dict:
                 torch, kernel, "mlp", f"mlp_block {mode} stage {si + 1}")
             row["mlp_rows_chunk_splits"] = list(pvt_mlp.mlp_tile(
                 *x.shape, c, dt))
-            print(f"mlp_block stage {si + 1} {mode}: rows, chunk, splits "
+            print(f"mlp_block {side} px stage {si + 1} {mode}: rows, "
+                  f"chunk, splits "
                   f"{row['mlp_rows_chunk_splits']}, "
                   f"{row['launches_by_kernel']}")
         rows.append(row)
@@ -635,6 +715,7 @@ def check_pvt_mlp(torch, dev) -> dict:
                    "pranet2_tpu/ops/pvt_mlp.py:112", rows)
     out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/mlp_fused.cuh"]
     out["launch_ms"] = _launch_ms(rows)
+    out["emcad_forward"] = _forward_sum(rows, "emcad_path")
     return out
 
 
@@ -661,17 +742,20 @@ def _one_launch(torch, fn, label, what, calls: int = 5) -> dict:
 def check_sra_attention(torch, dev) -> dict:
     """``sra_attention`` at the four PVTv2-b2 stage shapes (bf16, Tkv 121)
     and one float32 case, against ``sra_attention_plain``.  The main-path
-    times are one forward's worth (3 + 4 + 6 + 3 calls)."""
+    times are one forward's worth (3 + 4 + 6 + 3 calls).  The 224^2 stages
+    (Tkv 49 at each; EMCAD-B2's forward) are totalled apart, as
+    ``emcad_forward``."""
     import torch.nn.functional as F
 
     from pranet2_tpu_torch.ops import pvt_attn
 
     g = torch.Generator(device=dev).manual_seed(3)
-    cases = [(si, torch.bfloat16) for si in range(4)]
-    cases.append((2, torch.float32))
+    cases = [(PVT_STAGES, si, torch.bfloat16) for si in range(4)]
+    cases.append((PVT_STAGES, 2, torch.float32))
+    cases += [(EMCAD_STAGES, si, torch.bfloat16) for si in range(4)]
     rows = []
-    for si, dt in cases:
-        side, d, nh, _, sr, depth = PVT_STAGES[si]
+    for stages, si, dt in cases:
+        side, d, nh, _, sr, depth = stages[si]
         tkv = (side // sr) ** 2
         p = _pvt_params(torch, g, dev, dt, {
             "w_ln": (d,), "b_ln": (d,), "wq": (d, d), "bq": (d,),
@@ -710,8 +794,10 @@ def check_sra_attention(torch, dev) -> dict:
             return x + F.linear(o, p["wp"], p["bp"])
 
         kernel = lambda: pvt_attn.sra_attention(*args)
+        emcad = stages is EMCAD_STAGES
         row = {"shape": list(x.shape), "heads": nh, "tkv": tkv,
-               "dtype": name, "main_path": dt == torch.bfloat16,
+               "dtype": name, "emcad_path": emcad,
+               "main_path": dt == torch.bfloat16 and not emcad,
                "calls_per_forward": depth,
                "max_abs_err": err, "excess": over,
                "ms": time_ms(kernel),
@@ -727,7 +813,8 @@ def check_sra_attention(torch, dev) -> dict:
                    f"sra_attention stage {si + 1} {name}")}
         # grid (query tiles, cluster size, images)
         grid = row["launches_by_kernel"]["attention"]["grids"]
-        print(f"sra_attention stage {si + 1} {name}: grid {grid}, ms "
+        print(f"sra_attention {side} px stage {si + 1} {name}: grid "
+              f"{grid}, ms "
               f"{row['ms']:.4f}, device {row['device_ms']:.4f}, chain "
               f"{row['library_chain_ms']:.4f}, device "
               f"{row['library_chain_device_ms']:.4f}")
@@ -736,6 +823,7 @@ def check_sra_attention(torch, dev) -> dict:
                    "pranet2_tpu/ops/pvt_attn.py:43", rows)
     out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/sra_attend.cuh"]
     out["launch_ms"] = _launch_ms(rows)
+    out["emcad_forward"] = _forward_sum(rows, "emcad_path")
     return out
 
 
@@ -847,6 +935,44 @@ def check_sra_block(torch, dev) -> dict:
     # rounded once
     out["sources"] = [out["source"], "pranet2_tpu_torch/csrc/pvt_attn.cu"]
     out["launch_ms"] = _launch_ms(rows)
+    return out
+
+
+def _stem_pool_at(torch, g, shape) -> dict:
+    """``stem_pool`` at ``shape`` (bf16) bit for bit against its plain
+    version, timed beside its bound, plain version and ATen chain (one call
+    a forward)."""
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.ops import stem
+
+    dev = g.device
+    z = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    c = shape[1]
+    w, b, mean = (torch.randn(c, generator=g, device=dev) * sc + sh
+                  for sc, sh in ((0.1, 1.0), (0.1, 0.0), (0.1, 0.0)))
+    bn = (w, b, mean, 0.5 + torch.rand(c, generator=g, device=dev))
+    got = stem.stem_pool(z, *bn, 1e-5)
+    want = stem.stem_pool_plain(z, *bn, 1e-5)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"stem_pool at {shape} differs from its plain "
+                             f"version")
+    b_stem, by = bound_ms(nbytes(z, got, *bn),
+                          3 * z.numel() + 8 * got.numel())
+    kernel = lambda: stem.stem_pool(z, *bn, 1e-5)
+    chain = lambda: F.max_pool2d(torch.relu(F.batch_norm(
+        z, bn[2], bn[3], bn[0], bn[1], False, 0.0, 1e-5)), 3, 2, 1)
+    out = {"shape": list(shape), "max_abs_err": 0.0, "ms": time_ms(kernel),
+           "device_ms": kernel_ms(torch, kernel),
+           "plain_ms": time_ms(lambda: stem.stem_pool_plain(z, *bn, 1e-5)),
+           "bound_ms": b_stem, "bound_by": by,
+           "library_chain_ms": time_ms(chain),
+           "library_chain_device_ms": kernel_ms(torch, chain)}
+    print(f"stem_pool at {shape}: ms {out['ms']:.4f}, device "
+          f"{out['device_ms']:.4f}, chain {out['library_chain_ms']:.4f} "
+          f"(device {out['library_chain_device_ms']:.4f}), bound "
+          f"{b_stem:.5f}")
     return out
 
 
@@ -1777,6 +1903,346 @@ def run_cli(torch, np) -> dict:
             "benchmark_table": bench_out.splitlines()}
 
 
+# ---------------------------------------------------------------------------
+# the multiclass half: EMCAD served over CT-sized volumes, its recipe and
+# its CLIs
+# ---------------------------------------------------------------------------
+
+EMCAD_VOLUME = (48, 512, 512)   # one CT-sized volume: 48 slices of 512^2
+EMCAD_CHUNK = 16
+_NONE = {**_V1, "stem_pool": 0, **_NO_RES2, **_NO_PVT}
+# served paths: label -> (encoder, launches per forward by kernel); the
+# gate is the decoder's standalone ``dsra_gate`` (EMCAD has no dsra_level)
+EMCAD_PATHS = {
+    "emcad_pvt_v2_b2": ("pvt_v2_b2", {**_NONE, "dsra_gate": 3,
+                                      "mlp_block": 16, "sra_attention": 16}),
+    "emcad_resnet50": ("resnet50", {**_NONE, "dsra_gate": 3,
+                                    "stem_pool": 1}),
+}
+EMCAD_MLP_MODES = {"emcad_pvt_v2_b2": {"plain": 0, "stats": 12,
+                                       "final_ln": 4},
+                   "emcad_resnet50": _NO_MLP}
+
+
+def synthetic_volume(np, shape, classes: int, seed: int):
+    """A float32 volume of ``shape`` (values in [0, 1], smooth organs over
+    noise, as a normalised CT) and its int32 labels: ``classes - 1``
+    ellipsoids of labels 1.. at random centres."""
+    rng = np.random.default_rng(seed)
+    d, h, w = shape
+    zz, yy, xx = np.ogrid[:d, :h, :w]
+    labels = np.zeros(shape, np.int32)
+    for c in range(1, classes):
+        cz, cy, cx = (rng.uniform(0.2, 0.8) * n for n in shape)
+        rz, ry, rx = (rng.uniform(0.1, 0.25) * n for n in shape)
+        labels[((zz - cz) / rz) ** 2 + ((yy - cy) / ry) ** 2
+               + ((xx - cx) / rx) ** 2 < 1] = c
+    image = (0.2 * rng.random(shape, dtype=np.float32)
+             + labels.astype(np.float32) / classes)
+    return image, labels
+
+
+class _Volumes:
+    """A dataset of the given (image, label) volumes, as the multiclass
+    datasets give them."""
+
+    def __init__(self, volumes):
+        self.volumes = volumes
+
+    def __len__(self):
+        return len(self.volumes)
+
+    def case_name(self, i):
+        return f"case{i:04d}"
+
+    def __getitem__(self, i):
+        return self.volumes[i]
+
+
+def run_emcad_path(torch, np, dev, label, state_dict
+                   ) -> tuple[dict, object]:
+    """Serve one synthetic CT volume on path ``label`` through
+    ``train.multiclass.test_volumes`` (bf16, eval, chunks of 16, EMCAD's
+    ``fg_only`` test mode); count launches over exactly that run."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.train.multiclass import (combined_logits,
+                                                    test_volumes,
+                                                    zoom_to_patch)
+
+    enc, launches = EMCAD_PATHS[label]
+    model = get_model("emcad", device=dev, dtype=torch.bfloat16,
+                      num_classes=EMCAD_CLASSES, encoder=enc)
+    model.load_state_dict(state_dict)
+    model.eval()
+    image, labels = synthetic_volume(np, EMCAD_VOLUME, EMCAD_CLASSES, seed=0)
+    patch = (EMCAD_SIZE, EMCAD_SIZE)
+    t0 = time.perf_counter()
+    chunk = zoom_to_patch(image[:EMCAD_CHUNK], patch)
+    zoom_ms = (time.perf_counter() - t0) * 1e3
+    batch = torch.from_numpy(chunk).to(dev)
+    with torch.inference_mode():
+        model(batch)  # warm-up: cuDNN's choices, the kernels' first launch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics, names = test_volumes(model, _Volumes([(image, labels)]),
+                                  EMCAD_CLASSES, patch, "fg_only",
+                                  chunk=EMCAD_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    modes = dict(_wrappers()["mlp_block"].mode_launches)
+    forwards = -(-EMCAD_VOLUME[0] // EMCAD_CHUNK)
+    want = {k: n * forwards for k, n in launches.items()}
+    want_modes = {k: n * forwards for k, n in EMCAD_MLP_MODES[label].items()}
+    if counts != want or modes != want_modes:
+        raise AssertionError(f"{label}: launches {counts}, MLP modes {modes} "
+                             f"over {forwards} forwards; expected {want}, "
+                             f"{want_modes}")
+    if metrics.shape != (1, EMCAD_CLASSES - 1, 4) or not np.isfinite(
+            metrics).all():
+        raise AssertionError(f"{label}: metrics {metrics}")
+    with torch.inference_mode():
+        fwd = lambda: model(batch)
+        fwd_ms = time_ms(fwd, reps=10, rounds=5)
+        logits = combined_logits(fwd(), "fg_only").float()
+        device = device_time(torch, fwd)
+    busy = device["busy_ms"]
+    return {"model": label, "launches": counts, "mlp_modes": modes,
+            "forwards": forwards, "volume": list(EMCAD_VOLUME),
+            "volume_wall_s": wall, "forward_ms": fwd_ms,
+            "forward_img_per_s": EMCAD_CHUNK / fwd_ms * 1e3,
+            "idle_share": None if busy is None else 1 - busy / fwd_ms,
+            "host_zoom_ms_per_chunk": zoom_ms, "device": device,
+            "mean_dice": float(metrics[0, :, 0].mean())}, (batch, logits)
+
+
+def check_emcad_reference(torch, enc, state_dict, batch, logits_bf16
+                          ) -> dict:
+    """bf16 served logits (``fg_only``) vs the float32 model's on the card
+    (TF32 off: the PVT blocks on the module chain, the gate on its kernel);
+    the card's float32 maps vs the CPU's (plain versions) on a small
+    input."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.train.multiclass import combined_logits
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = {"num_classes": EMCAD_CLASSES, "encoder": enc}
+    f32 = get_model("emcad", device=batch.device, **kw)
+    cpu = get_model("emcad", device="cpu", **kw)
+    for m in (f32, cpu):
+        m.load_state_dict(state_dict)
+        m.eval()
+    with torch.inference_mode():
+        logits = combined_logits(f32(batch), "fg_only").float()
+        small = batch[:2, :, :64, :64]
+        gpu_maps, cpu_maps = f32(small), cpu(small.cpu())
+    for t in (logits, logits_bf16):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("non-finite logits")
+    out = {"bf16_vs_f32_rel_err": rel_err(logits_bf16, logits),
+           "gpu_vs_cpu_f32_rel_err": max(rel_err(g.cpu(), c) for g, c
+                                         in zip(gpu_maps, cpu_maps))}
+    if out["bf16_vs_f32_rel_err"] > MODEL_TOL:
+        raise AssertionError(f"emcad {enc}: bf16 logits off: {out}")
+    if out["gpu_vs_cpu_f32_rel_err"] > F32_TOL:
+        raise AssertionError(f"emcad {enc}: GPU f32 maps off the CPU's: "
+                             f"{out}")
+    return out
+
+
+def write_slices(np, root, n: int, side: int, seed: int, keys,
+                 classes: int = 14) -> list:
+    """``n`` ``.npz`` slices of ``side``^2 under ``root`` (image and label
+    under ``keys``: Synapse's ``image``/``label``, ACDC's ``img``/``label``),
+    each a slice of a synthetic volume; returns their names."""
+    os.makedirs(root, exist_ok=True)
+    image, labels = synthetic_volume(np, (n, side, side), classes, seed)
+    names = []
+    for i in range(n):
+        name = f"case{seed:02d}_slice{i:03d}"
+        np.savez(os.path.join(root, f"{name}.npz"),
+                 **{keys[0]: image[i], keys[1]: labels[i]})
+        names.append(name)
+    return names
+
+
+def _write_list(path, names) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+MC_TRAIN_SLICES, MC_VALID_SLICES, MC_EPOCHS = 12, 6, 4
+
+
+def train_multiclass_recipe(torch, np, dev) -> dict:
+    """The recipe through ``train.multiclass.train_multiclass``: EMCAD-B2
+    float32, batch 6 at 224 (Synapse's defaults: AdamW 1e-4, weight decay
+    1e-4, MUTATION), ``MC_EPOCHS`` epochs of 2 batches over 12 synthetic
+    Synapse ``.npz`` slices of 512^2 (labels 0-13, remapped to 9 classes,
+    ``RandomGenerator``), validated on an ACDC-layout ``valid`` split of 6
+    ``.npz`` slices of 256^2 (labels 0-8) from ``eval_from_frac`` on.
+    Launch counts from just before ``train_multiclass`` to just after: 3
+    ``dsra_gate`` a step and 3 a validation forward (one chunk a slice),
+    no other kernel (float32: the PVT blocks on the module chain).  Then,
+    on the trained state and one batch, ms a step (CUDA events), its
+    launches, and its device busy time and idle share."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.data import (ACDCDataset, RandomGenerator,
+                                        SynapseDataset)
+    from pranet2_tpu_torch.train import multiclass as mc
+
+    with tempfile.TemporaryDirectory() as root:
+        names = write_slices(np, os.path.join(root, "train_npz"),
+                             MC_TRAIN_SLICES, 512, 1, ("image", "label"))
+        _write_list(os.path.join(root, "lists", "train.txt"), names)
+        valid = write_slices(np, os.path.join(root, "acdc", "valid"),
+                             MC_VALID_SLICES, 256, 2, ("img", "label"),
+                             classes=EMCAD_CLASSES)
+        _write_list(os.path.join(root, "acdc_lists", "valid.txt"),
+                    [f"{n}.npz" for n in valid])
+        cfg = mc.MulticlassTrainConfig(
+            num_classes=EMCAD_CLASSES, max_epochs=MC_EPOCHS,
+            batch_size=EMCAD_TRAIN_BATCH, img_size=EMCAD_SIZE)
+        train_ds = SynapseDataset(
+            os.path.join(root, "train_npz"), os.path.join(root, "lists"),
+            "train", nclass=EMCAD_CLASSES,
+            transform=RandomGenerator((EMCAD_SIZE, EMCAD_SIZE),
+                                      seed=cfg.seed))
+        val_ds = ACDCDataset(os.path.join(root, "acdc"),
+                             os.path.join(root, "acdc_lists"), "valid")
+        model = get_model("emcad", device=dev, num_classes=EMCAD_CLASSES,
+                          encoder="pvt_v2_b2",
+                          generator=torch.Generator().manual_seed(cfg.seed))
+        logs = []
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, best, history = mc.train_multiclass(model, cfg, train_ds,
+                                                   val_ds, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = _launch_counts()
+    trained = state.step
+    steps = MC_EPOCHS * (MC_TRAIN_SLICES // EMCAD_TRAIN_BATCH)
+    eval_from = int(MC_EPOCHS * cfg.eval_from_frac)
+    validations = sum(e >= eval_from for e in range(1, MC_EPOCHS + 1))
+    want = {**_NONE, "dsra_gate": 3 * steps
+            + 3 * MC_VALID_SLICES * validations}
+    if counts != want:
+        raise AssertionError(f"multiclass recipe: launches {counts}, "
+                             f"expected {want}")
+    dice = [h["val_dice"] for h in history if "val_dice" in h]
+    losses = [h["loss"] for h in history]
+    if (trained != steps or len(dice) != validations
+            or not all(np.isfinite(losses + dice))):
+        raise AssertionError(f"multiclass recipe: step {trained}, "
+                             f"history {history}")
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((EMCAD_TRAIN_BATCH, 1, EMCAD_SIZE, EMCAD_SIZE),
+                    generator=g, device=dev)
+    y = torch.randint(0, EMCAD_CLASSES, (EMCAD_TRAIN_BATCH, EMCAD_SIZE,
+                                         EMCAD_SIZE), generator=g, device=dev)
+    step = mc.make_multiclass_train_step(model, cfg)
+    _reset_counts()
+    step(state, x, y)
+    torch.cuda.synchronize()
+    per_step = _launch_counts()
+    if per_step != {**_NONE, "dsra_gate": 3}:
+        raise AssertionError(f"multiclass step: launches {per_step}")
+    step_ms = time_ms(lambda: step(state, x, y), reps=3, rounds=3)
+    busy = device_time(torch, lambda: step(state, x, y), forwards=3)
+    return {"phase": "multiclass_recipe", "model": "emcad_pvt_v2_b2",
+            "dtype": "float32", "batch": EMCAD_TRAIN_BATCH,
+            "img_size": EMCAD_SIZE, "steps": trained, "launches": counts,
+            "dsra_gate_per_step": per_step["dsra_gate"], "epochs": history,
+            "best_kept": best is not None, "wall_s": wall,
+            "peak_mem_gb": peak / 1e9, "ms_per_step": step_ms,
+            "train_img_per_s": EMCAD_TRAIN_BATCH / step_ms * 1e3,
+            "step_busy_ms": busy["busy_ms"],
+            "step_idle_share": (None if busy["busy_ms"] is None
+                                else 1 - busy["busy_ms"] / step_ms),
+            "step_top": busy["top"][:6], "log_tail": logs[-3:]}
+
+
+def run_multiclass_training(torch, np, dev, card) -> dict:
+    """The multiclass recipe with PyTorch's default float32 flags (cuDNN's
+    TF32 on, cuBLAS's off), as a user of the CLI trains; prints its
+    ``train:`` line and returns its launch counts."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        recipe = train_multiclass_recipe(torch, np, dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    print("train: " + json.dumps({"card": card, **recipe}))
+    print(f"train multiclass emcad_pvt_v2_b2 f32 {EMCAD_SIZE} batch "
+          f"{EMCAD_TRAIN_BATCH}: {recipe['ms_per_step']:.1f} ms a step, "
+          f"{recipe['train_img_per_s']:.1f} img/s, peak "
+          f"{recipe['peak_mem_gb']:.2f} GB, busy {recipe['step_busy_ms']} ms "
+          f"on {card}")
+    return {"train_multiclass": recipe["launches"]}
+
+
+def run_multiclass_cli(torch, np) -> dict:
+    """The multiclass CLIs on the card, each as a process:
+    ``cli.train_multiclass`` (EMCAD on ``pvt_v2_b0``, Synapse defaults:
+    batch 6 at 224, one epoch) over 12 synthetic ``.npz`` slices, and
+    ``cli.test_multiclass --dataset acdc`` (EMCAD-B2, 4 classes, 256,
+    float32) over 2 synthetic ACDC ``.npz`` volumes, from a reference-style
+    ``.pth`` (``module.`` keys in a ``state_dict`` container).  Checks the
+    printed lines, the snapshot and the metrics' finiteness."""
+    from pranet2_tpu_torch import get_model
+
+    with tempfile.TemporaryDirectory() as root:
+        names = write_slices(np, os.path.join(root, "train_npz"),
+                             MC_TRAIN_SLICES, 512, 4, ("image", "label"))
+        _write_list(os.path.join(root, "lists", "train.txt"), names)
+        out_dir = os.path.join(root, "out")
+        train_out, train_s = _cli(
+            "train_multiclass", "--model", "emcad", "--encoder", "pvt_v2_b0",
+            "--dataset", "synapse", "--max_epochs", "1", "--root_path",
+            os.path.join(root, "train_npz"), "--list_dir",
+            os.path.join(root, "lists"), "--save_dir", out_dir)
+        lines = train_out.splitlines()
+        if (not lines or not lines[0].startswith("epoch 1/1 loss")
+                or not lines[-1].startswith("done; snapshots in")
+                or not os.path.exists(os.path.join(out_dir, "last.pt"))):
+            raise AssertionError(f"train_multiclass: {train_out}")
+        cases = []
+        for i in range(2):
+            image, labels = synthetic_volume(np, (10, 256, 232), 4, 5 + i)
+            np.savez(os.path.join(root, f"patient{i}.npz"), img=image,
+                     label=labels)
+            cases.append(f"patient{i}.npz")
+        _write_list(os.path.join(root, "acdc_lists", "test.txt"), cases)
+        sd = get_model("emcad", device="cpu", num_classes=4,
+                       generator=torch.Generator().manual_seed(6)
+                       ).state_dict()
+        pth = os.path.join(root, "emcad_acdc.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+                   pth)
+        test_out, test_s = _cli(
+            "test_multiclass", "--dataset", "acdc", "--volume_path", root,
+            "--list_dir", os.path.join(root, "acdc_lists"), "--checkpoint",
+            pth)
+    lines = test_out.splitlines()
+    numbers = [float(v) for ln in lines
+               for v in re.findall(r"-?\d+\.\d+|nan|inf", ln)]
+    if (len(lines) != 2 + 3 + 1 or not lines[-1].startswith("mean dice")
+            or not all(math.isfinite(v) for v in numbers)):
+        raise AssertionError(f"test_multiclass: {test_out}")
+    return {"train_multiclass_s": train_s, "test_multiclass_s": test_s,
+            "train_lines": train_out.splitlines(), "test_lines": lines}
+
+
 def main() -> int:
     import torch
 
@@ -1836,6 +2302,25 @@ def main() -> int:
     cli = run_cli(torch, np)
     print("cli: " + json.dumps({"card": card, **cli}))
     print("\n".join(cli["benchmark_table"]))
+
+    for label, (enc, _) in EMCAD_PATHS.items():
+        state_dict = get_model(
+            "emcad", device="cpu", num_classes=EMCAD_CLASSES, encoder=enc,
+            generator=torch.Generator().manual_seed(0)).state_dict()
+        model, (batch, logits_bf16) = run_emcad_path(torch, np, dev, label,
+                                                     state_dict)
+        model.update(check_emcad_reference(torch, enc, state_dict, batch,
+                                           logits_bf16))
+        print(f"{label} bf16 {EMCAD_SIZE}x{EMCAD_SIZE} chunk {EMCAD_CHUNK}: "
+              f"forward {model['forward_ms']:.2f} ms "
+              f"({model['forward_img_per_s']:.1f} img/s), busy "
+              f"{model['device']['busy_ms']} ms, volume "
+              f"{model['volume_wall_s']:.2f} s on {card}")
+        print("model: " + json.dumps(model))
+        models.append(model)
+    train_runs.update(run_multiclass_training(torch, np, dev, card))
+    mc_cli = run_multiclass_cli(torch, np)
+    print("cli: " + json.dumps({"card": card, **mc_cli}))
     for k in kernels:
         by_path = {m["model"]: m["launches"][k["name"]] for m in models}
         by_path.update({label: counts.get(k["name"], 0)

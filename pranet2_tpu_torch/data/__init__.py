@@ -4,8 +4,13 @@ from pranet2_tpu_torch.data.polyp import (IMAGENET_MEAN, IMAGENET_STD,
                                           OdgtDataset, PolypDataset,
                                           PolypTestDataset, preprocess_image,
                                           preprocess_mask)
+from pranet2_tpu_torch.data.volumes import (ACDCDataset, RandomGenerator,
+                                            RandomGeneratorACDC,
+                                            SynapseDataset,
+                                            remap_synapse_labels)
 
-__all__ = ["AugmentedView", "BatchLoader", "CachedDataset",
+__all__ = ["ACDCDataset", "AugmentedView", "BatchLoader", "CachedDataset",
            "DevicePrefetcher", "IMAGENET_MEAN", "IMAGENET_STD", "OdgtDataset",
-           "PolypDataset", "PolypTestDataset", "preprocess_image",
-           "preprocess_mask"]
+           "PolypDataset", "PolypTestDataset", "RandomGenerator",
+           "RandomGeneratorACDC", "SynapseDataset", "preprocess_image",
+           "preprocess_mask", "remap_synapse_labels"]

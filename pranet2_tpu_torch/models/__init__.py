@@ -1,4 +1,5 @@
-from pranet2_tpu_torch.models import pranet  # noqa: F401  (registers models)
+# the model modules register their models
+from pranet2_tpu_torch.models import emcad, pranet  # noqa: F401
 from pranet2_tpu_torch.models.registry import (get_model, list_models,
                                                register_model)
 

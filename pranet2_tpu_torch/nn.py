@@ -76,6 +76,25 @@ class DropPath(nn.Module):
         return drop_path(x, self.rate, self.training, self.generator)
 
 
+def drop_path_seeder(model: nn.Module, seed: int):
+    """``reseed(step)``: points every ``DropPath`` of ``model`` with a rate
+    at one generator on the model's device and seeds it from ``seed`` and
+    ``step``, as the JAX package folds its dropout key by the step (a no-op
+    for a model without one)."""
+    drops = [m for m in model.modules()
+             if isinstance(m, DropPath) and m.rate > 0]
+    gen = (torch.Generator(device=next(model.parameters()).device)
+           if drops else None)
+
+    def reseed(step: int) -> None:
+        if gen is not None:
+            gen.manual_seed(seed * 2 ** 32 + step)
+            for m in drops:
+                m.generator = gen
+
+    return reseed
+
+
 class ConvBN(nn.Module):
     """conv (no bias) + BN, no activation (torch ``BasicConv2d``)."""
 

@@ -10,7 +10,7 @@ from pranet2_tpu_torch.ops.pooling import avg_pool, avg_pool_same, max_pool
 from pranet2_tpu_torch.ops.pvt_attn import sra_block, sra_block_plain
 from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
 from pranet2_tpu_torch.ops.resize import (resize_bilinear, resize_bilinear_np,
-                                          upsample)
+                                          upsample, upsample_nearest)
 from pranet2_tpu_torch.ops.stem import (max_pool3x3s2, max_pool3x3s2_plain,
                                         stem_pool, stem_pool_plain)
 
@@ -20,4 +20,4 @@ __all__ = ["avg_pool", "avg_pool_same", "depthwise_conv3x3",
            "max_pool3x3s2_plain", "pvt_block", "pvt_block_plain",
            "resize_bilinear", "resize_bilinear_np", "reverse_attention",
            "sra_block", "sra_block_plain", "stem_pool", "stem_pool_plain",
-           "upsample"]
+           "upsample", "upsample_nearest"]

@@ -35,6 +35,15 @@ def upsample(x: torch.Tensor, scale: float, align_corners: bool = False
     return resize_bilinear(x, (int(h * scale), int(w * scale)), align_corners)
 
 
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """torch ``nn.Upsample(scale_factor=k)`` (nearest, integer scale) of an
+    (N, C, H, W) tensor: ``out[i] = in[i // k]``, an exact repeat along H
+    and W (one copy; ``F.interpolate`` would index through the float 1/k)."""
+    n, c, h, w = x.shape
+    return (x[:, :, :, None, :, None].expand(n, c, h, scale, w, scale)
+            .reshape(n, c, h * scale, w * scale))
+
+
 @functools.lru_cache(maxsize=None)
 def _interp_matrix(src: int, dst: int, align_corners: bool) -> np.ndarray:
     """Dense (dst, src) 1-D bilinear interpolation matrix, torch semantics."""

@@ -1,5 +1,5 @@
-"""Training of the port: the binary (PraNet) recipe, its optimizer and
-state."""
+"""Training of the port: the binary (PraNet, ``train.binary``) and
+multiclass (``train.multiclass``) recipes, their optimizer and state."""
 
 from pranet2_tpu_torch.train.optim import (Optimizer, make_optimizer,
                                            step_decay_schedule)

@@ -45,7 +45,7 @@ from pranet2_tpu_torch.evalx import (aggregate_dataset_metrics,
 from pranet2_tpu_torch.losses import structure_loss
 from pranet2_tpu_torch.losses.binary import _boundary_weight
 from pranet2_tpu_torch.models import get_model
-from pranet2_tpu_torch.nn import DropPath
+from pranet2_tpu_torch.nn import drop_path_seeder
 from pranet2_tpu_torch.ops import resize_bilinear, resize_bilinear_np
 from pranet2_tpu_torch.serve import is_v2, served_logits
 from pranet2_tpu_torch.train.optim import make_optimizer, step_decay_schedule
@@ -83,7 +83,8 @@ def _rate_size(trainsize: int, rate: float) -> int:
     return int(round(trainsize * rate / 32) * 32)
 
 
-def _compute_dtype(name: str) -> torch.dtype | None:
+def dtype_of(name: str) -> torch.dtype | None:
+    """The compute type of a config's ``dtype`` name (None: float32)."""
     if name not in COMPUTE_DTYPES:
         raise ValueError(f"dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                          f"got {name!r}")
@@ -122,10 +123,7 @@ def make_train_step(model: nn.Module, *, target_size: int, rescale: bool,
         raise NotImplementedError(
             "remat is not ported: torch.utils.checkpoint would run each "
             "BatchNorm's running-statistics update twice")
-    drops = [m for m in model.modules()
-             if isinstance(m, DropPath) and m.rate > 0]
-    gen = (torch.Generator(device=next(model.parameters()).device)
-           if drops else None)
+    reseed = drop_path_seeder(model, seed)
 
     def step(state: TrainState, images: torch.Tensor, gts: torch.Tensor):
         if rescale:
@@ -133,10 +131,7 @@ def make_train_step(model: nn.Module, *, target_size: int, rescale: bool,
             images = resize_bilinear(images, size, align_corners=True)
             gts = resize_bilinear(gts, size, align_corners=True)
         model.train()
-        if gen is not None:  # the steps of other scales share the modules
-            gen.manual_seed(seed * 2 ** 32 + state.step)
-            for m in drops:
-                m.generator = gen
+        reseed(state.step)  # the steps of other scales share the modules
         loss, losses = train_loss(model, images, gts, compute_dtype)
         state.optimizer.zero_grad()
         loss.backward()
@@ -167,7 +162,7 @@ def train(cfg: BinaryTrainConfig, dataset=None, eval_fn=None, log=print):
         raise TypeError(f"{cfg.model}: the binary recipe trains PraNet-V2 "
                         f"models only (pranet_v2, pvt_pranet_v2)")
     dev = resolve(cfg.device)
-    compute = _compute_dtype(cfg.dtype)
+    compute = dtype_of(cfg.dtype)
     dataset = dataset or PolypDataset(
         os.path.join(cfg.train_path, "images"),
         os.path.join(cfg.train_path, "masks"), cfg.trainsize)

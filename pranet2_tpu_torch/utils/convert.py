@@ -3,15 +3,17 @@ from a reference ``.pth``.
 
 ``state_dict_from_jax`` takes a ``{'params': ..., 'batch_stats': ...}`` tree
 of numpy arrays and returns the port's ``state_dict``: conv kernels HWIO ->
-OIHW, Dense kernels (in, out) -> Linear (out, in), BatchNorm and LayerNorm
-``scale/bias`` -> ``weight/bias`` and BatchNorm ``mean/var`` ->
-``running_mean/running_var``.  The names are the inverse of the JAX
-package's ``res2net_key_map``, ``resnet_key_map``, ``pvtv2_key_map`` and
-``pranet_key_map``; the port keeps the reference checkpoint's names, so a
-reference ``.pth`` loads with plain ``load_state_dict``.  The JAX package
-calls every encoder ``backbone``; the reference (and so the port) calls
-PraNet-V1's Res2Net and ResNet encoders ``resnet`` (the model's
-``encoder_name``), which ``encoder=`` renames.
+OIHW (grouped and depthwise ones too: ``(kh, kw, cin/g, cout)`` ->
+``(cout, cin/g, kh, kw)``), Dense kernels (in, out) -> Linear (out, in),
+BatchNorm and LayerNorm ``scale/bias`` -> ``weight/bias`` and BatchNorm
+``mean/var`` -> ``running_mean/running_var``.  The names are the inverse
+of the JAX package's ``res2net_key_map``, ``resnet_key_map``,
+``pvtv2_key_map``, ``pranet_key_map`` and ``emcad_key_map``; the port
+keeps the reference checkpoint's names, so a reference ``.pth`` loads with
+plain ``load_state_dict``.  The JAX package calls every encoder
+``backbone``; the reference (and so the port) calls PraNet-V1's Res2Net
+and ResNet encoders ``resnet`` (the model's ``encoder_name``), which
+``encoder=`` renames.
 
 ``load_reference_state_dict`` reads a reference ``.pth`` (the port's copy
 of ``pranet2_tpu/utils/torch_convert.py::load_torch_state_dict``) and
@@ -43,6 +45,16 @@ _RENAMES = (
     (r"\.block(\d)_(\d+)\.", r".block\1.\2."),
     (r"\.patch_embed(\d)_(proj|norm)$", r".patch_embed\1.\2"),
     (r"\.mlp\.dwconv$", ".mlp.dwconv.dwconv"),
+    # EMCAD's decoder: each MSCB is the first of a Sequential, its depthwise
+    # convs in ``msdc.dwconvs``; convs and BatchNorms in Sequentials
+    (r"^decoder\.(mscb\d)\.dwconv(\d)(_bn)?$", r"decoder.\1.msdc.dwconvs.\2\3"),
+    (r"^decoder\.(mscb\d)\.", r"decoder.\1.0."),
+    (r"^decoder\.(eucb\d)\.up_dwc$", r"decoder.\1.up_dwc.1"),
+    (r"^decoder\.(eucb\d)\.up_dwc_bn$", r"decoder.\1.up_dwc.2"),
+    (r"^decoder\.(eucb\d)\.pwc$", r"decoder.\1.pwc.0"),
+    (r"^decoder\.(.+)_bn$", r"decoder.\1.1"),
+    (r"^decoder\.((mscb\d\.0\.(pconv[12]|msdc\.dwconvs\.\d))"
+     r"|lgag\d\.(W_g|W_x|psi))$", r"decoder.\1.0"),
 )
 
 

@@ -35,6 +35,14 @@ def test_import_pulls_in_no_jax():
             "import pranet2_tpu_torch.cli.benchmark\n"
             "import pranet2_tpu_torch.utils.profiling\n"
             "import pranet2_tpu_torch.models.backbones.resnet\n"
+            "import pranet2_tpu_torch.models.emcad\n"
+            "import pranet2_tpu_torch.losses.multiclass\n"
+            "import pranet2_tpu_torch.train.multiclass\n"
+            "import pranet2_tpu_torch.train.extras\n"
+            "import pranet2_tpu_torch.evalx.volumetric\n"
+            "import pranet2_tpu_torch.data.volumes\n"
+            "import pranet2_tpu_torch.cli.train_multiclass\n"
+            "import pranet2_tpu_torch.cli.test_multiclass\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

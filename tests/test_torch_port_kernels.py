@@ -1094,3 +1094,113 @@ def test_resnet_stem_pool_is_exact_on_the_card(no_tf32, dtype):
     tol = 1e-6 if dtype == torch.float32 else 2 ** -7
     assert ((got.float() - chain.float()).abs().max()
             / chain.float().abs().max()).item() <= tol
+
+
+# ------------------------------------------------- EMCAD's shapes (224^2)
+
+# PVTv2-b2 at 224 x 224, EMCAD's Synapse patch: (side, dim, heads, mlp
+# ratio, sr) by stage; Tkv is 49 at every stage
+EMCAD_STAGES = [(56, 64, 1, 8, 8), (28, 128, 2, 8, 4), (14, 320, 5, 4, 2),
+                (7, 512, 8, 4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("n", [16, 6], ids=["serve_chunk", "train_batch"])
+@pytest.mark.parametrize("side", [14, 28, 56])
+def test_dsra_gate_at_emcad_shapes(cuda, side, n, dtype):
+    """EMCAD's three decoder gates on Synapse (9 classes at 14/28/56 px):
+    one launch, within the gate's tolerance of the plain version (float64:
+    1e-12 of max |out|)."""
+    g = torch.Generator(device=cuda).manual_seed(side + n)
+    fg, cf, cb = (torch.randn((n, 9, side, side), generator=g, device=cuda,
+                              dtype=torch.float32).to(dtype)
+                  for _ in range(3))
+    before = dsra.dsra_gate.launches
+    got = ops.dsra_gate(fg, cf, cb)
+    torch.cuda.synchronize()
+    assert dsra.dsra_gate.launches == before + 1 and got.dtype == dtype
+    want = dsra.dsra_gate_plain(fg, cf, cb)
+    if dtype == torch.float64:
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-12
+    else:
+        tol = GATE_TOL[dtype]
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stats", "final_ln"])
+@pytest.mark.parametrize("stage", range(4))
+def test_mlp_kernel_at_emcad_shapes(cuda, stage, mode):
+    """``mlp_block`` at the four 224^2 stage shapes (bf16, batch 16): one
+    launch, held to the plain version as at 352^2."""
+    side, d, _, ratio, _ = EMCAD_STAGES[stage]
+    g = torch.Generator(device=cuda).manual_seed(side)
+    args = _mlp_args(g, 16, side, side, d, d * ratio, torch.bfloat16)
+    kw = _mlp_mode_kw(g, d, mode)
+    before = pvt_mlp.mlp_block.launches
+    got = pvt_mlp.mlp_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert pvt_mlp.mlp_block.launches == before + 1
+    want = pvt_mlp.mlp_block_plain(*args, **kw)
+    if mode == "stats":
+        mu, rstd = pvt_mlp.ln_stats(got[0].float(), 1e-6)
+        _assert_held(got[1], mu, 1e-4)
+        _assert_held(got[2], rstd, 1e-4)
+        got, want = got[0], want[0]
+    _assert_held(got, want, PVT_TOL[torch.bfloat16], _mlp_base(args, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", range(4))
+def test_sra_kernel_at_emcad_shapes(cuda, stage):
+    """``sra_attention`` at the four 224^2 stage shapes (bf16, batch 16,
+    Tkv 49: stage 4's 49 queries and 49 keys an image, both under the
+    64-row tile)."""
+    side, d, nh, _, sr = EMCAD_STAGES[stage]
+    tkv = (side // sr) ** 2
+    assert tkv == 49
+    g = torch.Generator(device=cuda).manual_seed(side + d)
+    bf, f32 = torch.bfloat16, torch.float32
+    args = (_rand(g, (16, side, side, d), bf), _rand(g, (d,), f32, 0.1, 1.0),
+            _rand(g, (d,), f32, 0.1), _rand(g, (d, d), bf, d ** -0.5),
+            _rand(g, (d,), bf, 0.1), _rand(g, (16, tkv, 2 * d), bf),
+            _rand(g, (d, d), bf, d ** -0.5), _rand(g, (d,), bf, 0.1), nh,
+            1e-6)
+    before = pvt_attn.sra_attention.launches
+    got = pvt_attn.sra_attention(*args)
+    torch.cuda.synchronize()
+    assert pvt_attn.sra_attention.launches == before + 1
+    _assert_held(got, pvt_attn.sra_attention_plain(*args), PVT_TOL[bf],
+                 args[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder,launches", [
+    ("pvt_v2_b2", (16, 16, 3, 0)), ("resnet50", (0, 0, 3, 1))])
+def test_emcad_bf16_kernel_forward_matches_module_chain(no_tf32, encoder,
+                                                        launches):
+    """EMCAD at full depth, 224 x 224, batch 2, 9 classes: the bf16 eval
+    forward's (mlp_block, sra_attention, dsra_gate, stem_pool) launches,
+    and its 8 maps within 0.1 of the largest |map| of the float32 model
+    (the module chain; its gates on the float32 kernel)."""
+    ref = get_model("emcad", device=no_tf32, num_classes=9,
+                    encoder=encoder).eval()
+    model = get_model("emcad", device=no_tf32, dtype=torch.bfloat16,
+                      num_classes=9, encoder=encoder).eval()
+    model.load_state_dict(ref.state_dict())
+    x = torch.randn((2, 1, 224, 224), device=no_tf32,
+                    generator=torch.Generator(device=no_tf32).manual_seed(0))
+    counters = (pvt_mlp.mlp_block, pvt_attn.sra_attention, dsra.dsra_gate,
+                stem.stem_pool)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        got = model(x)
+        counts = tuple(f.launches - b for f, b in zip(counters, before))
+        want = ref(x)
+    assert counts == launches
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        assert ((g.float() - w).abs().max() / w.abs().max()).item() < 0.1
