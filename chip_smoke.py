@@ -51,7 +51,7 @@
    its PNGs and ``cli.benchmark`` (pranet_v1 and pranet_v1_resnet, batch 1
    and 16); prints a ``cli:`` JSON line beside the card and the
    benchmark's table.
-6. The multiclass phase (``run_emcad_path``, ``run_multiclass_training``,
+6. The multiclass phase (``serve_volume_path``, ``run_multiclass_training``,
    ``run_multiclass_cli``): EMCAD served on PVTv2-b2 and on ResNet-50
    (bf16, 9 classes, random weights from seed 0) over one synthetic
    CT-sized volume (48 slices of 512^2, labels 0-8) through
@@ -68,8 +68,24 @@
    ``.pth``), each in its own process.  Rows 1, 2, 5 and 6 are held
    against their plain versions at EMCAD's shapes in step 2 (the 112^2
    stem map, the gates at 9 classes, the 224^2 PVT stages).
-7. Prints one JSON line of kernel results (``launches`` summed over the
-   served paths and the training parts), then as the last line
+7. The MaxViT phase: ``merit_cascaded`` (small: two MaxViT backbones at
+   256 and 224, the CASCADE decoder twice) and ``mist_cam``, dual, 9
+   classes, bf16, served over the same volume (``serve_volume_path`` with
+   Dice only; MERIT's ``fg_minus_bg``, MIST's ``fg_only``): 6 and 3
+   ``dsra_gate`` launches a forward, no other kernel; each checked as
+   EMCAD's.  Then one bf16 forward each of ``merit_parallel`` (256^2, 4
+   classes, 6 gates) and the zoo (``maxvit_seg``, ``maxvit4out``,
+   ``maxvit_cascade`` at 224^2, no kernel) against float32; then
+   ``train_multiclass`` on MERIT-small and MIST (float32, batch 6 at 224,
+   the seeded dropout on, 4 steps, 6 and 3 gates a step; ``train:``
+   lines); then ``cli.test_multiclass --model mist --dataset acdc`` on a
+   reference-style ``.pth`` (packed ``in_proj_weight``, the dead ``conv3``)
+   and ``cli.train_multiclass --model merit`` (one epoch), each a process.
+   Row 2 is held against its plain version at MERIT's and MIST's gates
+   (9 classes at 14/28/56 and 16/32/64 px) in step 2.
+8. Prints one JSON line of kernel results (``launches`` summed over the
+   served paths, the one-forward checks and the training parts, by path in
+   ``launches_by_path``), then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside the
@@ -78,6 +94,7 @@ repository, or when any check fails.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -127,6 +144,7 @@ PVT_STAGES = ((88, 64, 1, 8, 8, 3), (44, 128, 2, 8, 4, 4),
 # 224x224 slices, batch 6 in training; served as volumes in chunks of 16
 EMCAD_SIZE, EMCAD_CLASSES, EMCAD_TRAIN_BATCH = 224, 9, 6
 EMCAD_GATE_SIDES = (14, 28, 56)   # the decoder's three gates at 224
+MAXVIT_GATE_SIDES = (16, 32, 64)  # a CASCADE or CAM decoder's on a 256 pass
 # PVTv2-b2 at 224x224, EMCAD's Synapse patch: the same stages, Tkv 49 at
 # each (sr 8/4/2/1 on 56/28/14/7-px maps)
 EMCAD_STAGES = ((56, 64, 1, 8, 8, 3), (28, 128, 2, 8, 4, 4),
@@ -470,12 +488,15 @@ def _check_gate_alone(torch, dev, g) -> dict:
     channel, the three levels at each scale) in float32, the recipe's type
     (its times are one batch's worth: nine calls), and in bf16; in float64
     at the 0.75 scale's shapes (the card-vs-CPU step's); then at the
-    serving levels' shapes (bf16, batch 16) and four channels; then at
-    EMCAD's three gates (9 classes at 14, 28 and 56 px): bf16 at batch 16
-    (the served forward's, totalled as ``emcad_forward``), float32 at batch
-    6 (the train step's, ``emcad_train_step``), float32 and float64 at both.
-    Each against ``dsra_gate_plain``: float32 and bf16 within ``GATE_TOL``
-    elementwise, float64 within ``F64_GATE_TOL`` of max |out|."""
+    serving levels' shapes (bf16, batch 16) and four channels; then at the
+    multiclass decoders' gates at 224^2, 9 classes: EMCAD's at 14, 28 and
+    56 px, MIST's at 16, 32 and 64 (its encoder at 256), MERIT's at both
+    (a pass at 256, then one at 224), in bf16 at batch 16 (the served
+    forward's, totalled as ``emcad_forward``, ``merit_forward`` and
+    ``mist_forward``) and float32 at batch 6 (the train step's,
+    ``*_train_step``), and in float32 and float64 at EMCAD's.  Each against
+    ``dsra_gate_plain``: float32 and bf16 within ``GATE_TOL`` elementwise,
+    float64 within ``F64_GATE_TOL`` of max |out|."""
     from pranet2_tpu_torch.ops import dsra
 
     sides = _train_sides()
@@ -486,22 +507,27 @@ def _check_gate_alone(torch, dev, g) -> dict:
     cases += [((BATCH, 1, s, s), torch.bfloat16, False) for s in (44, 22, 11)]
     cases += [((BATCH, 4, 44, 44), dt, False)
               for dt in (torch.float32, torch.bfloat16)]
-    # EMCAD's three gates (its decoder's 14, 28 and 56 px at 224), nine
-    # classes: the bf16 serving forward (batch 16), the float32 train step
-    # (batch 6) and float64 (the step's in a float64 run)
-    emcad = [((n, EMCAD_CLASSES, s, s), dt, label)
-             for n, dt, label in ((BATCH, torch.bfloat16, "emcad_forward"),
-                                  (EMCAD_TRAIN_BATCH, torch.float32,
-                                   "emcad_train_step"),
-                                  (BATCH, torch.float32, None),
-                                  (BATCH, torch.float64, None),
-                                  (EMCAD_TRAIN_BATCH, torch.float64, None))
-             for s in EMCAD_GATE_SIDES]
+    # the multiclass decoders' gates, nine classes: the bf16 serving forward
+    # (batch 16) and the float32 train step (batch 6) of each model whose
+    # decoder gates at those sides; float32 and float64 at EMCAD's
+    paths = {EMCAD_GATE_SIDES: ("emcad", "merit"),
+             MAXVIT_GATE_SIDES: ("merit", "mist")}
+    multiclass = [((n, EMCAD_CLASSES, s, s), dt, tuple(
+        f"{m}_{what}" for m in models))
+        for sides, models in paths.items()
+        for n, dt, what in ((BATCH, torch.bfloat16, "forward"),
+                            (EMCAD_TRAIN_BATCH, torch.float32, "train_step"))
+        for s in sides]
+    multiclass += [((n, EMCAD_CLASSES, s, s), dt, ())
+                   for n, dt in ((BATCH, torch.float32),
+                                 (BATCH, torch.float64),
+                                 (EMCAD_TRAIN_BATCH, torch.float64))
+                   for s in EMCAD_GATE_SIDES]
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
              "host_ms": 0.0}
-    emcad_totals = {}
+    path_totals = {}
     shapes, worst, by = [], 0.0, "bytes"
-    for shape, dt, main_path in cases + emcad:
+    for shape, dt, main_path in cases + multiclass:
         fg, cf, cb = (torch.randn(shape, generator=g, device=dev).to(dt)
                       for _ in range(3))
         got = dsra.dsra_gate(fg, cf, cb, True)
@@ -524,8 +550,8 @@ def _check_gate_alone(torch, dev, g) -> dict:
         kernel = lambda: dsra.dsra_gate(fg, cf, cb, True)
         row = {"shape": list(shape), "dtype": name,
                "main_path": main_path is True,
-               "emcad_path": main_path if isinstance(main_path, str)
-               else None, "bound_by": by_, "max_abs_err": err.max().item(),
+               "paths": list(main_path) if isinstance(main_path, tuple)
+               else [], "bound_by": by_, "max_abs_err": err.max().item(),
                "ms": time_ms(kernel), "device_ms": kernel_ms(torch, kernel),
                "host_ms": host_ms(torch, kernel),
                "plain_ms": time_ms(
@@ -537,14 +563,14 @@ def _check_gate_alone(torch, dev, g) -> dict:
             by = by_
             for k in total:
                 total[k] += row[k]
-        elif main_path:
-            sums = emcad_totals.setdefault(main_path, dict.fromkeys(total,
-                                                                   0.0))
+        for label in row["paths"]:
+            sums = path_totals.setdefault(label, dict.fromkeys(total, 0.0))
             for k in total:
                 sums[k] += row[k]
+            sums["calls"] = sums.get("calls", 0) + 1
             sums["bound_by"] = by_
-    for label, sums in emcad_totals.items():
-        print(f"dsra_gate, EMCAD's three gates ({label}): ms "
+    for label, sums in path_totals.items():
+        print(f"dsra_gate, {label} ({sums['calls']} gates): ms "
               f"{sums['ms']:.4f}, device {sums['device_ms']:.4f}, plain "
               f"{sums['plain_ms']:.4f}, bound {sums['bound_ms']:.5f}")
     print(f"dsra_gate, a train batch's nine float32 calls: ms "
@@ -554,7 +580,7 @@ def _check_gate_alone(torch, dev, g) -> dict:
             "source": "pranet2_tpu_torch/csrc/dsra.cu",
             "replaces": "pranet2_tpu/ops/dsra.py:71",
             "max_abs_err": worst, **total, "bound_by": by,
-            "library_ms": None, **emcad_totals, "shapes": shapes}
+            "library_ms": None, **path_totals, "shapes": shapes}
 
 
 def _pvt_params(torch, g, dev, dt, shapes):
@@ -1911,17 +1937,25 @@ def run_cli(torch, np) -> dict:
 EMCAD_VOLUME = (48, 512, 512)   # one CT-sized volume: 48 slices of 512^2
 EMCAD_CHUNK = 16
 _NONE = {**_V1, "stem_pool": 0, **_NO_RES2, **_NO_PVT}
-# served paths: label -> (encoder, launches per forward by kernel); the
-# gate is the decoder's standalone ``dsra_gate`` (EMCAD has no dsra_level)
-EMCAD_PATHS = {
-    "emcad_pvt_v2_b2": ("pvt_v2_b2", {**_NONE, "dsra_gate": 3,
-                                      "mlp_block": 16, "sra_attention": 16}),
-    "emcad_resnet50": ("resnet50", {**_NONE, "dsra_gate": 3,
-                                    "stem_pool": 1}),
+# served volume paths: label -> (model, get_model keyword arguments, the
+# family's test mode, launches per forward by kernel, MLP modes a forward);
+# every gate is its decoder's standalone ``dsra_gate`` (no dsra_level).
+# EMCAD on PVTv2-b2 and ResNet-50; MERIT-small (two backbones, the decoder
+# run twice: 6 gates) and MIST (3 gates), all dual, 9 classes
+VOLUME_PATHS = {
+    "emcad_pvt_v2_b2": ("emcad", {"encoder": "pvt_v2_b2"}, "fg_only",
+                        {**_NONE, "dsra_gate": 3, "mlp_block": 16,
+                         "sra_attention": 16},
+                        {"plain": 0, "stats": 12, "final_ln": 4}),
+    "emcad_resnet50": ("emcad", {"encoder": "resnet50"}, "fg_only",
+                       {**_NONE, "dsra_gate": 3, "stem_pool": 1}, _NO_MLP),
+    "merit_cascaded": ("merit_cascaded", {"model_scale": "small"},
+                       "fg_minus_bg", {**_NONE, "dsra_gate": 6}, _NO_MLP),
+    "mist_cam": ("mist_cam", {}, "fg_only", {**_NONE, "dsra_gate": 3},
+                 _NO_MLP),
 }
-EMCAD_MLP_MODES = {"emcad_pvt_v2_b2": {"plain": 0, "stats": 12,
-                                       "final_ln": 4},
-                   "emcad_resnet50": _NO_MLP}
+EMCAD_PATHS = ("emcad_pvt_v2_b2", "emcad_resnet50")
+MAXVIT_PATHS = ("merit_cascaded", "mist_cam")
 
 
 def synthetic_volume(np, shape, classes: int, seed: int):
@@ -1959,21 +1993,37 @@ class _Volumes:
         return self.volumes[i]
 
 
-def run_emcad_path(torch, np, dev, label, state_dict
-                   ) -> tuple[dict, object]:
-    """Serve one synthetic CT volume on path ``label`` through
-    ``train.multiclass.test_volumes`` (bf16, eval, chunks of 16, EMCAD's
-    ``fg_only`` test mode); count launches over exactly that run."""
-    from pranet2_tpu_torch import get_model
+def _outputs(out) -> tuple:
+    """A model's maps as a tuple (``maxvit_seg`` returns one tensor)."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _on_card(torch, cpu_model, dev, dtype=None):
+    """A copy of ``cpu_model`` on ``dev`` in eval, its convolutions and
+    Linears cast to ``dtype`` (``nn.set_compute_dtype``) when given: what
+    ``get_model(..., device=dev, dtype=dtype)`` and ``load_state_dict``
+    give, without drawing the weights again."""
+    from pranet2_tpu_torch.nn import set_compute_dtype
+
+    model = copy.deepcopy(cpu_model).to(dev)
+    if dtype is not None:
+        set_compute_dtype(model, dtype)
+    return model.eval()
+
+
+def run_volume_path(torch, np, dev, label, cpu_model,
+                    full_metrics: bool = True) -> tuple[dict, object]:
+    """Serve one synthetic CT volume on path ``label`` (``cpu_model``'s
+    weights in bf16 on the card) through ``train.multiclass.test_volumes``
+    (eval, chunks of 16, the family's test mode; Dice, HD95, Jaccard and
+    ASD, or with ``full_metrics=False`` Dice alone); count launches over
+    exactly that run."""
     from pranet2_tpu_torch.train.multiclass import (combined_logits,
                                                     test_volumes,
                                                     zoom_to_patch)
 
-    enc, launches = EMCAD_PATHS[label]
-    model = get_model("emcad", device=dev, dtype=torch.bfloat16,
-                      num_classes=EMCAD_CLASSES, encoder=enc)
-    model.load_state_dict(state_dict)
-    model.eval()
+    _, _, mode, launches, mlp_modes = VOLUME_PATHS[label]
+    model = _on_card(torch, cpu_model, dev, torch.bfloat16)
     image, labels = synthetic_volume(np, EMCAD_VOLUME, EMCAD_CLASSES, seed=0)
     patch = (EMCAD_SIZE, EMCAD_SIZE)
     t0 = time.perf_counter()
@@ -1986,7 +2036,8 @@ def run_emcad_path(torch, np, dev, label, state_dict
     _reset_counts()
     t0 = time.perf_counter()
     metrics, names = test_volumes(model, _Volumes([(image, labels)]),
-                                  EMCAD_CLASSES, patch, "fg_only",
+                                  EMCAD_CLASSES, patch, mode,
+                                  full_metrics=full_metrics,
                                   chunk=EMCAD_CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1994,22 +2045,24 @@ def run_emcad_path(torch, np, dev, label, state_dict
     modes = dict(_wrappers()["mlp_block"].mode_launches)
     forwards = -(-EMCAD_VOLUME[0] // EMCAD_CHUNK)
     want = {k: n * forwards for k, n in launches.items()}
-    want_modes = {k: n * forwards for k, n in EMCAD_MLP_MODES[label].items()}
+    want_modes = {k: n * forwards for k, n in mlp_modes.items()}
     if counts != want or modes != want_modes:
         raise AssertionError(f"{label}: launches {counts}, MLP modes {modes} "
                              f"over {forwards} forwards; expected {want}, "
                              f"{want_modes}")
-    if metrics.shape != (1, EMCAD_CLASSES - 1, 4) or not np.isfinite(
+    n_metrics = 4 if full_metrics else 1
+    if metrics.shape != (1, EMCAD_CLASSES - 1, n_metrics) or not np.isfinite(
             metrics).all():
         raise AssertionError(f"{label}: metrics {metrics}")
     with torch.inference_mode():
         fwd = lambda: model(batch)
         fwd_ms = time_ms(fwd, reps=10, rounds=5)
-        logits = combined_logits(fwd(), "fg_only").float()
+        logits = combined_logits(fwd(), mode).float()
         device = device_time(torch, fwd)
     busy = device["busy_ms"]
     return {"model": label, "launches": counts, "mlp_modes": modes,
             "forwards": forwards, "volume": list(EMCAD_VOLUME),
+            "full_metrics": full_metrics,
             "volume_wall_s": wall, "forward_ms": fwd_ms,
             "forward_img_per_s": EMCAD_CHUNK / fwd_ms * 1e3,
             "idle_share": None if busy is None else 1 - busy / fwd_ms,
@@ -2017,39 +2070,110 @@ def run_emcad_path(torch, np, dev, label, state_dict
             "mean_dice": float(metrics[0, :, 0].mean())}, (batch, logits)
 
 
-def check_emcad_reference(torch, enc, state_dict, batch, logits_bf16
-                          ) -> dict:
-    """bf16 served logits (``fg_only``) vs the float32 model's on the card
-    (TF32 off: the PVT blocks on the module chain, the gate on its kernel);
-    the card's float32 maps vs the CPU's (plain versions) on a small
-    input."""
-    from pranet2_tpu_torch import get_model
-    from pranet2_tpu_torch.train.multiclass import combined_logits
-
+def _f32_reference(torch, label, cpu, batch, logits_bf16, to_logits) -> dict:
+    """bf16 logits vs the float32 model's on the card (TF32 off; the gates
+    on their float32 kernel); the card's float32 maps vs the CPU's
+    (``cpu``, the plain versions) on a small input (2 images of 64^2)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    kw = {"num_classes": EMCAD_CLASSES, "encoder": enc}
-    f32 = get_model("emcad", device=batch.device, **kw)
-    cpu = get_model("emcad", device="cpu", **kw)
-    for m in (f32, cpu):
-        m.load_state_dict(state_dict)
-        m.eval()
+    f32 = _on_card(torch, cpu, batch.device)
     with torch.inference_mode():
-        logits = combined_logits(f32(batch), "fg_only").float()
+        logits = to_logits(f32(batch)).float()
         small = batch[:2, :, :64, :64]
-        gpu_maps, cpu_maps = f32(small), cpu(small.cpu())
+        gpu_maps, cpu_maps = (_outputs(f32(small)),
+                              _outputs(cpu(small.cpu())))
     for t in (logits, logits_bf16):
         if not bool(torch.isfinite(t).all()):
-            raise AssertionError("non-finite logits")
+            raise AssertionError(f"{label}: non-finite logits")
     out = {"bf16_vs_f32_rel_err": rel_err(logits_bf16, logits),
            "gpu_vs_cpu_f32_rel_err": max(rel_err(g.cpu(), c) for g, c
                                          in zip(gpu_maps, cpu_maps))}
     if out["bf16_vs_f32_rel_err"] > MODEL_TOL:
-        raise AssertionError(f"emcad {enc}: bf16 logits off: {out}")
+        raise AssertionError(f"{label}: bf16 logits off: {out}")
     if out["gpu_vs_cpu_f32_rel_err"] > F32_TOL:
-        raise AssertionError(f"emcad {enc}: GPU f32 maps off the CPU's: "
-                             f"{out}")
+        raise AssertionError(f"{label}: GPU f32 maps off the CPU's: {out}")
     return out
+
+
+def serve_volume_path(torch, np, dev, label, card,
+                      full_metrics: bool = True) -> dict:
+    """One volume path (``run_volume_path``, random weights from seed 0)
+    and its reference checks (``_f32_reference`` on the family's combined
+    logits); prints and returns its ``model:`` record."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.train.multiclass import combined_logits
+
+    name, kwargs, mode, _, _ = VOLUME_PATHS[label]
+    cpu = get_model(name, device="cpu", num_classes=EMCAD_CLASSES,
+                    generator=torch.Generator().manual_seed(0),
+                    **kwargs).eval()
+    model, (batch, logits_bf16) = run_volume_path(torch, np, dev, label, cpu,
+                                                  full_metrics)
+    model.update(_f32_reference(torch, label, cpu, batch, logits_bf16,
+                                lambda o: combined_logits(o, mode)))
+    print(f"{label} bf16 {EMCAD_SIZE}x{EMCAD_SIZE} chunk {EMCAD_CHUNK}: "
+          f"forward {model['forward_ms']:.2f} ms "
+          f"({model['forward_img_per_s']:.1f} img/s), busy "
+          f"{model['device']['busy_ms']} ms, volume "
+          f"{model['volume_wall_s']:.2f} s on {card}")
+    print("model: " + json.dumps(model))
+    return model
+
+
+# the rest of the MaxViT zoo, one bf16 forward each at batch 16: label ->
+# (model, keyword arguments, input side, gates a forward); merit_parallel at
+# ACDC's 256^2 and 4 classes, the single-backbone models on the small
+# 224^2 backbone at Synapse's 9
+MAXVIT_FORWARDS = {
+    "merit_parallel": ("merit_parallel", {"num_classes": 4}, 256, 6),
+    "maxvit_seg": ("maxvit_seg", {"num_classes": EMCAD_CLASSES}, 224, 0),
+    "maxvit4out": ("maxvit4out", {"num_classes": EMCAD_CLASSES}, 224, 0),
+    "maxvit_cascade": ("maxvit_cascade", {"num_classes": EMCAD_CLASSES}, 224,
+                       0),
+}
+
+
+def run_maxvit_forwards(torch, dev, card) -> list:
+    """``MAXVIT_FORWARDS``: each model in bf16 (random weights from seed 0)
+    on a seeded batch of 16, with the launch counters set to 0 just before
+    its forward and read just after (``dsra_gate`` 6 for merit_parallel,
+    no kernel for the zoo); the maps' shapes and finiteness, their sum
+    against the float32 model's (TF32 off) and the card's float32 against
+    the CPU's on a small input."""
+    from pranet2_tpu_torch import get_model
+
+    records = []
+    for label, (name, kwargs, side, gates) in MAXVIT_FORWARDS.items():
+        cpu = get_model(name, device="cpu",
+                        generator=torch.Generator().manual_seed(0),
+                        **kwargs).eval()
+        model = _on_card(torch, cpu, dev, torch.bfloat16)
+        g = torch.Generator(device=dev).manual_seed(4)
+        batch = torch.rand((BATCH, 1, side, side), generator=g, device=dev)
+        with torch.inference_mode():
+            model(batch)
+            torch.cuda.synchronize()
+            _reset_counts()
+            maps = _outputs(model(batch))
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            fwd_ms = time_ms(lambda: model(batch), reps=3, rounds=3)
+        if counts != {**_NONE, "dsra_gate": gates}:
+            raise AssertionError(f"{label}: launches {counts}")
+        want = (BATCH, kwargs["num_classes"], side, side)
+        if any(tuple(m.shape) != want or not bool(torch.isfinite(m).all())
+               for m in maps):
+            raise AssertionError(f"{label}: maps {[m.shape for m in maps]}")
+        rec = {"model": label, "launches": counts, "forwards": 1,
+               "maps": len(maps), "forward_ms": fwd_ms,
+               **_f32_reference(torch, label, cpu, batch,
+                                sum(m.float() for m in maps),
+                                lambda o: sum(_outputs(o)))}
+        print(f"{label} bf16 {side}x{side} batch {BATCH}: forward "
+              f"{fwd_ms:.2f} ms on {card}")
+        print("model: " + json.dumps(rec))
+        records.append(rec)
+    return records
 
 
 def write_slices(np, root, n: int, side: int, seed: int, keys,
@@ -2141,54 +2265,146 @@ def train_multiclass_recipe(torch, np, dev) -> dict:
             or not all(np.isfinite(losses + dice))):
         raise AssertionError(f"multiclass recipe: step {trained}, "
                              f"history {history}")
+    return {"phase": "multiclass_recipe", "model": "emcad_pvt_v2_b2",
+            "dtype": "float32", "batch": EMCAD_TRAIN_BATCH,
+            "img_size": EMCAD_SIZE, "steps": trained, "launches": counts,
+            "epochs": history, "best_kept": best is not None, "wall_s": wall,
+            "peak_mem_gb": peak / 1e9, "log_tail": logs[-3:],
+            **_step_profile(torch, dev, model, cfg, state, 3)}
+
+
+def _step_profile(torch, dev, model, cfg, state, gates: int) -> dict:
+    """On the trained state and one seeded batch (``cfg``'s size, 9
+    classes): the step's launches (``gates`` ``dsra_gate``, no other
+    kernel), ms a step (CUDA events), and its device busy time and idle
+    share."""
+    from pranet2_tpu_torch.train import multiclass as mc
 
     g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((EMCAD_TRAIN_BATCH, 1, EMCAD_SIZE, EMCAD_SIZE),
-                    generator=g, device=dev)
-    y = torch.randint(0, EMCAD_CLASSES, (EMCAD_TRAIN_BATCH, EMCAD_SIZE,
-                                         EMCAD_SIZE), generator=g, device=dev)
+    n, side = cfg.batch_size, cfg.img_size
+    x = torch.randn((n, 1, side, side), generator=g, device=dev)
+    y = torch.randint(0, cfg.num_classes, (n, side, side), generator=g,
+                      device=dev)
     step = mc.make_multiclass_train_step(model, cfg)
     _reset_counts()
     step(state, x, y)
     torch.cuda.synchronize()
     per_step = _launch_counts()
-    if per_step != {**_NONE, "dsra_gate": 3}:
+    if per_step != {**_NONE, "dsra_gate": gates}:
         raise AssertionError(f"multiclass step: launches {per_step}")
     step_ms = time_ms(lambda: step(state, x, y), reps=3, rounds=3)
     busy = device_time(torch, lambda: step(state, x, y), forwards=3)
-    return {"phase": "multiclass_recipe", "model": "emcad_pvt_v2_b2",
-            "dtype": "float32", "batch": EMCAD_TRAIN_BATCH,
-            "img_size": EMCAD_SIZE, "steps": trained, "launches": counts,
-            "dsra_gate_per_step": per_step["dsra_gate"], "epochs": history,
-            "best_kept": best is not None, "wall_s": wall,
-            "peak_mem_gb": peak / 1e9, "ms_per_step": step_ms,
-            "train_img_per_s": EMCAD_TRAIN_BATCH / step_ms * 1e3,
+    return {"dsra_gate_per_step": per_step["dsra_gate"],
+            "ms_per_step": step_ms, "train_img_per_s": n / step_ms * 1e3,
             "step_busy_ms": busy["busy_ms"],
             "step_idle_share": (None if busy["busy_ms"] is None
                                 else 1 - busy["busy_ms"] / step_ms),
-            "step_top": busy["top"][:6], "log_tail": logs[-3:]}
+            "step_top": busy["top"][:6]}
 
 
-def run_multiclass_training(torch, np, dev, card) -> dict:
-    """The multiclass recipe with PyTorch's default float32 flags (cuDNN's
-    TF32 on, cuBLAS's off), as a user of the CLI trains; prints its
-    ``train:`` line and returns its launch counts."""
+# MERIT-small and MIST on Synapse's recipe (float32, batch 6 at 224, the
+# seeded dropout on): label -> (model, keyword arguments, gates a step)
+MAXVIT_TRAIN = {"merit_cascaded": ("merit_cascaded", {"model_scale": "small"},
+                                   6),
+                "mist_cam": ("mist_cam", {}, 3)}
+MAXVIT_TRAIN_EPOCHS = 2
+
+
+def train_maxvit(torch, np, dev, label) -> dict:
+    """``train_multiclass`` on ``MAXVIT_TRAIN[label]``: ``MAXVIT_TRAIN_EPOCHS``
+    epochs of 2 batches over 12 synthetic Synapse ``.npz`` slices of 512^2
+    (labels 0-13, remapped to 9 classes, ``RandomGenerator``), no
+    validation; its launches from just before to just after (only the
+    gates), then ``_step_profile``."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.data import RandomGenerator, SynapseDataset
+    from pranet2_tpu_torch.nn import Dropout
+    from pranet2_tpu_torch.train import multiclass as mc
+
+    name, kwargs, gates = MAXVIT_TRAIN[label]
+    with tempfile.TemporaryDirectory() as root:
+        names = write_slices(np, os.path.join(root, "train_npz"),
+                             MC_TRAIN_SLICES, 512, 7, ("image", "label"))
+        _write_list(os.path.join(root, "lists", "train.txt"), names)
+        cfg = mc.MulticlassTrainConfig(
+            num_classes=EMCAD_CLASSES, max_epochs=MAXVIT_TRAIN_EPOCHS,
+            batch_size=EMCAD_TRAIN_BATCH, img_size=EMCAD_SIZE)
+        train_ds = SynapseDataset(
+            os.path.join(root, "train_npz"), os.path.join(root, "lists"),
+            "train", nclass=EMCAD_CLASSES,
+            transform=RandomGenerator((EMCAD_SIZE, EMCAD_SIZE),
+                                      seed=cfg.seed))
+        model = get_model(name, device=dev, num_classes=EMCAD_CLASSES,
+                          generator=torch.Generator().manual_seed(cfg.seed),
+                          **kwargs)
+        drops = sum(isinstance(m, Dropout) and m.rate > 0
+                    for m in model.modules())
+        logs = []
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _, history = mc.train_multiclass(model, cfg, train_ds,
+                                                log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = _launch_counts()
+    steps = MAXVIT_TRAIN_EPOCHS * (MC_TRAIN_SLICES // EMCAD_TRAIN_BATCH)
+    losses = [h["loss"] for h in history]
+    if (counts != {**_NONE, "dsra_gate": gates * steps}
+            or state.step != steps or not all(np.isfinite(losses))):
+        raise AssertionError(f"{label} recipe: launches {counts}, step "
+                             f"{state.step}, history {history}")
+    return {"phase": "maxvit_recipe", "model": label, "dtype": "float32",
+            "batch": EMCAD_TRAIN_BATCH, "img_size": EMCAD_SIZE,
+            "steps": steps, "dropout_modules": drops, "launches": counts,
+            "epochs": history, "wall_s": wall, "peak_mem_gb": peak / 1e9,
+            "log_tail": logs[-2:],
+            **_step_profile(torch, dev, model, cfg, state, gates)}
+
+
+def _user_flags(torch, fn):
+    """``fn()`` with PyTorch's default float32 flags (cuDNN's TF32 on,
+    cuBLAS's off), as a user of the CLI trains."""
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        recipe = train_multiclass_recipe(torch, np, dev)
+        return fn()
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _print_train(recipe, card) -> None:
     print("train: " + json.dumps({"card": card, **recipe}))
-    print(f"train multiclass emcad_pvt_v2_b2 f32 {EMCAD_SIZE} batch "
+    print(f"train multiclass {recipe['model']} f32 {EMCAD_SIZE} batch "
           f"{EMCAD_TRAIN_BATCH}: {recipe['ms_per_step']:.1f} ms a step, "
           f"{recipe['train_img_per_s']:.1f} img/s, peak "
           f"{recipe['peak_mem_gb']:.2f} GB, busy {recipe['step_busy_ms']} ms "
           f"on {card}")
+
+
+def run_multiclass_training(torch, np, dev, card) -> dict:
+    """The multiclass recipe (``_user_flags``); prints its ``train:`` line
+    and returns its launch counts."""
+    recipe = _user_flags(torch, lambda: train_multiclass_recipe(torch, np,
+                                                                dev))
+    _print_train(recipe, card)
     return {"train_multiclass": recipe["launches"]}
+
+
+def run_maxvit_training(torch, np, dev, card) -> dict:
+    """``train_maxvit`` on MERIT and MIST (``_user_flags``); prints their
+    ``train:`` lines and returns their launch counts."""
+    counts = {}
+    for label in MAXVIT_TRAIN:
+        recipe = _user_flags(torch, lambda: train_maxvit(torch, np, dev,
+                                                         label))
+        _print_train(recipe, card)
+        counts[f"train_{label}"] = recipe["launches"]
+    return counts
 
 
 def run_multiclass_cli(torch, np) -> dict:
@@ -2241,6 +2457,70 @@ def run_multiclass_cli(torch, np) -> dict:
         raise AssertionError(f"test_multiclass: {test_out}")
     return {"train_multiclass_s": train_s, "test_multiclass_s": test_s,
             "train_lines": train_out.splitlines(), "test_lines": lines}
+
+
+def run_maxvit_cli(torch, np) -> dict:
+    """The multiclass CLIs on MIST and MERIT, each as a process:
+    ``cli.test_multiclass --model mist --dataset acdc`` (float32, 4 classes,
+    256) over 2 synthetic ACDC ``.npz`` volumes from a reference-style
+    ``.pth`` (a ``state_dict`` container, ``module.`` keys, the packed
+    ``in_proj_weight``s and the decoder blocks' dead ``conv3``, which the
+    CLI drops and reports), and ``cli.train_multiclass --model merit``
+    (Synapse defaults: batch 6 at 224, one epoch over 12 synthetic
+    slices).  Checks the printed lines, the snapshot and the metrics'
+    finiteness."""
+    from pranet2_tpu_torch import get_model
+
+    with tempfile.TemporaryDirectory() as root:
+        cases = []
+        for i in range(2):
+            image, labels = synthetic_volume(np, (10, 256, 232), 4, 8 + i)
+            np.savez(os.path.join(root, f"patient{i}.npz"), img=image,
+                     label=labels)
+            cases.append(f"patient{i}.npz")
+        _write_list(os.path.join(root, "acdc_lists", "test.txt"), cases)
+        sd = get_model("mist_cam", device="cpu", num_classes=4,
+                       generator=torch.Generator().manual_seed(9)
+                       ).state_dict()
+        if "decoder.block_5.trans.attention_output.attention." \
+                "in_proj_weight" not in sd:
+            raise AssertionError("mist_cam holds no packed in_proj_weight")
+        for i in (6, 7, 8, 9):  # Block_decoder.conv3: defined, never run
+            sd[f"decoder.block_{i}.conv3.weight"] = torch.zeros((4, 4, 3, 3))
+            sd[f"decoder.block_{i}.conv3.bias"] = torch.zeros(4)
+        pth = os.path.join(root, "mist_acdc.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+                   pth)
+        del sd
+        test_out, test_s = _cli(
+            "test_multiclass", "--model", "mist", "--dataset", "acdc",
+            "--volume_path", root, "--list_dir",
+            os.path.join(root, "acdc_lists"), "--checkpoint", pth)
+        names = write_slices(np, os.path.join(root, "train_npz"),
+                             MC_TRAIN_SLICES, 512, 10, ("image", "label"))
+        _write_list(os.path.join(root, "lists", "train.txt"), names)
+        out_dir = os.path.join(root, "out")
+        train_out, train_s = _cli(
+            "train_multiclass", "--model", "merit", "--dataset", "synapse",
+            "--max_epochs", "1", "--no-cache", "--root_path",
+            os.path.join(root, "train_npz"), "--list_dir",
+            os.path.join(root, "lists"), "--save_dir", out_dir)
+        saved = os.path.exists(os.path.join(out_dir, "last.pt"))
+    lines = test_out.splitlines()
+    numbers = [float(v) for ln in lines[1:]
+               for v in re.findall(r"-?\d+\.\d+|nan|inf", ln)]
+    if (len(lines) != 1 + 2 + 3 + 1
+            or not lines[0].startswith("dropped 8 checkpoint keys")
+            or not lines[-1].startswith("mean dice")
+            or not all(math.isfinite(v) for v in numbers)):
+        raise AssertionError(f"test_multiclass mist: {test_out}")
+    tlines = train_out.splitlines()
+    if (not tlines or not tlines[0].startswith("epoch 1/1 loss")
+            or not tlines[-1].startswith("done; snapshots in") or not saved):
+        raise AssertionError(f"train_multiclass merit: {train_out}")
+    return {"test_multiclass_mist_s": test_s,
+            "train_multiclass_merit_s": train_s, "test_lines": lines,
+            "train_lines": tlines}
 
 
 def main() -> int:
@@ -2303,24 +2583,22 @@ def main() -> int:
     print("cli: " + json.dumps({"card": card, **cli}))
     print("\n".join(cli["benchmark_table"]))
 
-    for label, (enc, _) in EMCAD_PATHS.items():
-        state_dict = get_model(
-            "emcad", device="cpu", num_classes=EMCAD_CLASSES, encoder=enc,
-            generator=torch.Generator().manual_seed(0)).state_dict()
-        model, (batch, logits_bf16) = run_emcad_path(torch, np, dev, label,
-                                                     state_dict)
-        model.update(check_emcad_reference(torch, enc, state_dict, batch,
-                                           logits_bf16))
-        print(f"{label} bf16 {EMCAD_SIZE}x{EMCAD_SIZE} chunk {EMCAD_CHUNK}: "
-              f"forward {model['forward_ms']:.2f} ms "
-              f"({model['forward_img_per_s']:.1f} img/s), busy "
-              f"{model['device']['busy_ms']} ms, volume "
-              f"{model['volume_wall_s']:.2f} s on {card}")
-        print("model: " + json.dumps(model))
-        models.append(model)
+    models += [serve_volume_path(torch, np, dev, label, card)
+               for label in EMCAD_PATHS]
     train_runs.update(run_multiclass_training(torch, np, dev, card))
     mc_cli = run_multiclass_cli(torch, np)
     print("cli: " + json.dumps({"card": card, **mc_cli}))
+
+    # the MaxViT phase: MERIT and MIST served over the volume (Dice only:
+    # the EMCAD paths time the full metrics), the rest of the zoo, their
+    # training and their CLIs
+    models += [serve_volume_path(torch, np, dev, label, card,
+                                 full_metrics=False)
+               for label in MAXVIT_PATHS]
+    models += run_maxvit_forwards(torch, dev, card)
+    train_runs.update(run_maxvit_training(torch, np, dev, card))
+    mv_cli = run_maxvit_cli(torch, np)
+    print("cli: " + json.dumps({"card": card, **mv_cli}))
     for k in kernels:
         by_path = {m["model"]: m["launches"][k["name"]] for m in models}
         by_path.update({label: counts.get(k["name"], 0)

@@ -11,9 +11,13 @@ MERIT, ``single`` without ``--dual``.  Example:
         --volume_path ./data/synapse/test_vol_h5 \\
         --list_dir ./lists/lists_Synapse --checkpoint EMCAD_Synapse.pth
 
-``--checkpoint``: a reference ``.pth`` (containers and ``module.``
-prefixes unwrapped), or a port checkpoint (``utils.checkpoint.save_params``,
-e.g. the train CLI's ``best.pt``).
+``--model``: ``emcad``, ``merit``, ``merit_parallel`` or ``mist``, built as
+the train CLI builds them.  ``--checkpoint``: a reference ``.pth``
+(containers and ``module.`` prefixes unwrapped; MIST's packed attention
+in-projections as they are; the keys the JAX package's key maps drop
+dropped and reported: classifier heads, MIST's dead ``conv3``), or a port
+checkpoint (``utils.checkpoint.save_params``, e.g. the train CLI's
+``best.pt``).
 """
 
 from __future__ import annotations
@@ -80,10 +84,9 @@ def _test(args):
     num_classes = args.num_classes or (9 if synapse else 4)
     img_size = args.img_size or (224 if synapse else 256)
     mode = args.mode or default_mode(args.model, args.dual)
-    # the model first: an unported name fails before any data is read
     model = build_model(args.model, num_classes, args, device=args.device,
                         dtype=torch.bfloat16 if args.dtype == "bfloat16"
-                        else None)
+                        else None, img_size=img_size)
     if args.checkpoint.endswith(".pth"):
         dropped = load_reference(model,
                                  load_reference_state_dict(args.checkpoint))

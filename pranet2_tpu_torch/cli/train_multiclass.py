@@ -11,9 +11,11 @@ CUDA card unless given; ``--device cpu`` to run on the CPU).  Example:
 The model starts from random weights drawn from ``--seed``.  Snapshots go
 to ``--save_dir``: ``last.pt`` (the full train state) and ``best.pt`` (the
 best validated epoch's weights, when one passed the best threshold).
-``--dtype bfloat16`` trains under autocast with float32 parameters.  EMCAD
-is the one model ported so far: ``merit``, ``merit_parallel`` and ``mist``
-are refused.
+``--dtype bfloat16`` trains under autocast with float32 parameters.
+``--model``: ``emcad`` (its encoder and decoder by the EMCAD flags),
+``merit`` (``merit_cascaded``), ``merit_parallel`` or ``mist``
+(``mist_cam``), each dual unless ``--no-dual``, as the JAX package builds
+them.
 """
 
 from __future__ import annotations
@@ -23,33 +25,36 @@ import os
 
 import torch
 
-NOT_PORTED = ("merit", "merit_parallel", "mist")
+# the CLIs' model names -> the registry's
+MODELS = {"emcad": "emcad", "merit": "merit_cascaded",
+          "merit_parallel": "merit_parallel", "mist": "mist_cam"}
 
 
 def build_model(name: str, num_classes: int, args, device=None,
                 dtype: torch.dtype | None = None,
-                generator: torch.Generator | None = None):
-    """The model ``name`` of the multiclass CLIs, from their EMCAD flags."""
+                generator: torch.Generator | None = None,
+                img_size: int | None = None):
+    """The model ``name`` of the multiclass CLIs (``MODELS``), from their
+    flags: EMCAD's from the EMCAD flags, the others from ``--dual``;
+    MERIT's from the input side it will serve, ``img_size``, too (its
+    backbones swap scales at a multiple of 14)."""
     from pranet2_tpu_torch.models import get_model
 
+    kw = {}
     if name == "emcad":
-        return get_model(
-            "emcad", device=device, dtype=dtype, generator=generator,
-            num_classes=num_classes, encoder=args.encoder,
-            kernel_sizes=tuple(args.kernel_sizes),
-            expansion_factor=args.expansion_factor, lgag_ks=args.lgag_ks,
-            activation=args.activation_mscb, dual=args.dual)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: MaxViT, the CASCADE decoders, MERIT "
-            f"and MIST are ROADMAP.md Queue 1 item 7")
-    raise ValueError(name)
+        kw = dict(encoder=args.encoder, kernel_sizes=tuple(args.kernel_sizes),
+                  expansion_factor=args.expansion_factor,
+                  lgag_ks=args.lgag_ks, activation=args.activation_mscb)
+    elif name == "merit" and img_size is not None:
+        kw = dict(img_size=img_size)
+    return get_model(MODELS[name], device=device, dtype=dtype,
+                     generator=generator, num_classes=num_classes,
+                     dual=args.dual, **kw)
 
 
 def add_model_flags(p: argparse.ArgumentParser) -> None:
     """The flags that build the model, shared by both multiclass CLIs."""
-    p.add_argument("--model", default="emcad",
-                   choices=["emcad", *NOT_PORTED])
+    p.add_argument("--model", default="emcad", choices=list(MODELS))
     p.add_argument("--dataset", default="synapse", choices=["synapse", "acdc"])
     p.add_argument("--num_classes", type=int, default=None)
     p.add_argument("--img_size", type=int, default=None)
@@ -115,9 +120,9 @@ def main(argv=None):
         batch_size=batch_size, img_size=img_size, lr=args.base_lr,
         dual=args.dual, seed=args.seed, supervision=args.supervision,
         dtype=args.dtype)
-    # the model first: an unported name fails before any data is read
     model = build_model(args.model, num_classes, args, device=args.device,
-                        generator=torch.Generator().manual_seed(args.seed))
+                        generator=torch.Generator().manual_seed(args.seed),
+                        img_size=img_size)
 
     def with_cache(raw_ds, transform):
         def adapter(image, label):

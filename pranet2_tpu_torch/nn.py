@@ -1,14 +1,18 @@
 """Shared building blocks (NCHW), named after the reference's torch modules.
 
 Port of ``pranet2_tpu/nn.py``: ``ConvBN`` (the reference's ``BasicConv2d``),
-``RFB``, the ``PartialDecoder`` (dual-head, or V1's single head) and
-``DropPath`` (stochastic depth).  BatchNorm is
+``RFB``, the ``PartialDecoder`` (dual-head, or V1's single head),
+``DropPath`` (stochastic depth) and a seeded ``Dropout``.  BatchNorm is
 ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  The JAX package's ``decdot``
 and ``splitconv`` paths are TPU layout rewrites of the same convolutions and
 are not carried over.
 
 ``LayerNorm`` is flax's ``LayerNorm(dtype=...)``: float32 statistics in the
 E[x^2] - mu^2 form, float32 parameters, the result in the input's type.
+
+GELU: MaxViT and MIST use flax's exact-erf ``nn.gelu(approximate=False)``,
+which is torch's default ``nn.GELU()``; EMCAD's "gelu" is the tanh
+approximation (``models/emcad.py::act_layer``).
 
 Reduced precision: ``set_compute_dtype`` casts the convolutions and Linears
 and keeps every BatchNorm and LayerNorm in float32, as the JAX package keeps
@@ -54,8 +58,14 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     """
     if not training or rate == 0.0:
         return x
+    return _drop(x, rate, (x.shape[0],) + (1,) * (x.dim() - 1), generator)
+
+
+def _drop(x, rate: float, shape, generator: torch.Generator | None):
+    """``x`` with a mask of ``shape`` (broadcast over x) drawn from
+    ``generator`` on its device: kept with probability 1 - rate and scaled
+    by 1/keep, else zeroed."""
     keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
     dev = x.device if generator is None else generator.device
     mask = torch.rand(shape, generator=generator, device=dev) < keep
     return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
@@ -76,13 +86,30 @@ class DropPath(nn.Module):
         return drop_path(x, self.rate, self.training, self.generator)
 
 
+class Dropout(nn.Module):
+    """Element-wise dropout at a fixed rate (flax's ``nn.Dropout``: keep
+    each element with probability 1 - rate, scaled by 1/keep), in training
+    only, drawing from ``self.generator`` as ``DropPath`` does (``F.dropout``
+    takes no generator).  No parameter or buffer."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return _drop(x, self.rate, x.shape, self.generator)
+
+
 def drop_path_seeder(model: nn.Module, seed: int):
-    """``reseed(step)``: points every ``DropPath`` of ``model`` with a rate
-    at one generator on the model's device and seeds it from ``seed`` and
-    ``step``, as the JAX package folds its dropout key by the step (a no-op
-    for a model without one)."""
+    """``reseed(step)``: points every ``DropPath`` and ``Dropout`` of
+    ``model`` with a rate at one generator on the model's device and seeds
+    it from ``seed`` and ``step``, as the JAX package folds its dropout key
+    by the step (a no-op for a model without one)."""
     drops = [m for m in model.modules()
-             if isinstance(m, DropPath) and m.rate > 0]
+             if isinstance(m, (DropPath, Dropout)) and m.rate > 0]
     gen = (torch.Generator(device=next(model.parameters()).device)
            if drops else None)
 
@@ -176,26 +203,35 @@ class PartialDecoder(nn.Module):
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init: LeCun-normal conv and Linear kernels (the JAX
-    package's initializer, untruncated), zero biases, identity BatchNorm and
-    LayerNorm."""
+    package's initializer, untruncated; a packed attention in-projection
+    as its three (C, C) kernels), zero biases, identity BatchNorm and
+    LayerNorm; a module with an ``init_(generator)`` of its own (MaxViT's
+    bias table) draws its parameters there."""
+    def lecun(weight):
+        weight.copy_(torch.randn(weight.shape, generator=generator,
+                                 dtype=torch.float32)
+                     / math.sqrt(weight[0].numel()))
+
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator,
-                                           dtype=torch.float32)
-                               / math.sqrt(fan_in))
+                lecun(m.weight)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, nn.MultiheadAttention):
+                lecun(m.in_proj_weight)
+                m.in_proj_bias.zero_()
             elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif hasattr(m, "init_"):
+                m.init_(generator)
     return model
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast every convolution and Linear to ``dtype``; BatchNorm and
-    LayerNorm stay float32."""
+    """Cast every convolution, Linear and packed attention to ``dtype``;
+    BatchNorm and LayerNorm stay float32."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.MultiheadAttention)):
             m.to(dtype)
     return model

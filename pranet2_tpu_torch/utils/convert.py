@@ -6,11 +6,17 @@ of numpy arrays and returns the port's ``state_dict``: conv kernels HWIO ->
 OIHW (grouped and depthwise ones too: ``(kh, kw, cin/g, cout)`` ->
 ``(cout, cin/g, kh, kw)``), Dense kernels (in, out) -> Linear (out, in),
 BatchNorm and LayerNorm ``scale/bias`` -> ``weight/bias`` and BatchNorm
-``mean/var`` -> ``running_mean/running_var``.  The names are the inverse
-of the JAX package's ``res2net_key_map``, ``resnet_key_map``,
-``pvtv2_key_map``, ``pranet_key_map`` and ``emcad_key_map``; the port
-keeps the reference checkpoint's names, so a reference ``.pth`` loads with
-plain ``load_state_dict``.  The JAX package calls every encoder
+``mean/var`` -> ``running_mean/running_var``; MaxViT's LayerScale
+``ls_gamma``/``ls1_gamma``/``ls2_gamma`` -> ``ls.gamma``/``ls1.gamma``/
+``ls2.gamma`` and its ``relative_position_bias_table`` as it is; MIST's
+``in_proj_q/k/v`` packed into ``nn.MultiheadAttention``'s
+``in_proj_weight`` (3C, C) and ``in_proj_bias`` (the inverse of the JAX
+package's ``split_packed_mha``).  The names are the inverse of the JAX
+package's ``res2net_key_map``, ``resnet_key_map``, ``pvtv2_key_map``,
+``pranet_key_map``, ``emcad_key_map``, ``maxvit_key_map``,
+``merit_key_map``, ``maxvit_single_key_map`` and ``mist_key_map``; the
+port keeps the reference checkpoint's names, so a reference ``.pth``
+loads with plain ``load_state_dict``.  The JAX package calls every encoder
 ``backbone``; the reference (and so the port) calls PraNet-V1's Res2Net
 and ResNet encoders ``resnet`` (the model's ``encoder_name``), which
 ``encoder=`` renames.
@@ -19,7 +25,7 @@ and ResNet encoders ``resnet`` (the model's ``encoder_name``), which
 of ``pranet2_tpu/utils/torch_convert.py::load_torch_state_dict``) and
 ``load_reference`` loads it into a model, dropping and reporting the keys
 that the JAX package's key maps drop too (classifier heads, thop's
-counters).
+counters, MIST's dead ``decoder.block_N.conv3``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,24 @@ log = logging.getLogger(__name__)
 _RENAMES = (
     (r"^stem_conv$", "conv.0"),
     (r"^stem_bn$", "conv.1"),
+    # MaxViT (backbone, backbone1, backbone2) and the MERIT zoo's stem
+    (r"^gray\.stem_conv$", "conv.0"),
+    (r"^gray\.stem_bn$", "conv.1"),
+    (r"^(backbone\d?)\.stem_(conv1|norm1|conv2)$", r"\1.stem.\2"),
+    (r"^(backbone\d?)\.stages_(\d)_blocks_(\d+)\.",
+     r"\1.stages.\2.blocks.\3."),
+    (r"^(backbone\d?\.stages\.\d\.blocks\.\d+\..+)\.mlp_(fc[12])$",
+     r"\1.mlp.\2"),
+    (r"^(backbone\d?\..+\.attn\.rel_pos)\.(fc[12])$", r"\1.mlp.\2"),
+    # the CASCADE decoders: convs and BatchNorms in Sequentials
+    (r"^decoder\.(ConvBlock\d)\.(?:conv|bn)(\d)$", r"decoder.\1.conv.\2"),
+    (r"^decoder\.(Up\d)\.conv$", r"decoder.\1.up.1"),
+    (r"^decoder\.(Up\d)\.bn$", r"decoder.\1.up.2"),
+    (r"^decoder\.(AG\d)\.(W_g|W_x|psi)$", r"decoder.\1.\2.0"),
+    (r"^decoder\.(AG\d)\.(W_g|W_x|psi)_bn$", r"decoder.\1.\2.1"),
+    # MIST's attention is an nn.MultiheadAttention named ``attention``
+    (r"^(decoder\.block_\d\.trans\.attention_output)"
+     r"\.(in_proj_[qkv]|out_proj)$", r"\1.attention.\2"),
     (r"^backbone\.conv1_(\d)$", r"backbone.conv1.\1"),
     (r"(^|\.)layer(\d)_(\d+)\.", r"\1layer\2.\3."),
     (r"\.(convs|bns|downsample)_(\d)$", r".\1.\2"),
@@ -52,7 +76,8 @@ _RENAMES = (
     (r"^decoder\.(eucb\d)\.up_dwc$", r"decoder.\1.up_dwc.1"),
     (r"^decoder\.(eucb\d)\.up_dwc_bn$", r"decoder.\1.up_dwc.2"),
     (r"^decoder\.(eucb\d)\.pwc$", r"decoder.\1.pwc.0"),
-    (r"^decoder\.(.+)_bn$", r"decoder.\1.1"),
+    (r"^decoder\.((mscb\d\.0\.(pconv[12]|msdc\.dwconvs\.\d))"
+     r"|lgag\d\.(W_g|W_x|psi))_bn$", r"decoder.\1.1"),
     (r"^decoder\.((mscb\d\.0\.(pconv[12]|msdc\.dwconvs\.\d))"
      r"|lgag\d\.(W_g|W_x|psi))$", r"decoder.\1.0"),
 )
@@ -72,6 +97,23 @@ def _flatten(tree, path=()):
             yield from _flatten(v, path + (k,))
         else:
             yield path + (k,), np.asarray(v)
+
+
+# MaxViT's parameters that are neither a kernel, a scale nor a bias: the
+# leaf name -> the torch name under the leaf's module
+_LEAVES = {"ls_gamma": "ls.gamma", "ls1_gamma": "ls1.gamma",
+           "ls2_gamma": "ls2.gamma",
+           "relative_position_bias_table": "relative_position_bias_table"}
+
+
+def _pack_mha(sd: dict) -> None:
+    """``<p>.in_proj_{q,k,v}.{weight,bias}`` -> ``<p>.in_proj_weight``
+    (3C, C) and ``<p>.in_proj_bias`` (3C,), q then k then v, in place."""
+    for key in [k for k in sd if k.endswith(".in_proj_q.weight")]:
+        p = key[:-len(".in_proj_q.weight")]
+        for kind in ("weight", "bias"):
+            sd[f"{p}.in_proj_{kind}"] = np.concatenate(
+                [sd.pop(f"{p}.in_proj_{n}.{kind}") for n in "qkv"])
 
 
 def state_dict_from_jax(variables, encoder: str = "backbone"
@@ -94,8 +136,11 @@ def state_dict_from_jax(variables, encoder: str = "backbone"
             sd[f"{prefix}.weight"] = leaf
         elif kind == "bias":
             sd[f"{prefix}.bias"] = leaf
+        elif kind in _LEAVES:
+            sd[f"{prefix}.{_LEAVES[kind]}"] = leaf
         else:
             raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
+    _pack_mha(sd)
     for path, leaf in _flatten(variables.get("batch_stats", {})):
         prefix, kind = prefix_of(path[:-1]), path[-1]
         stat = {"mean": "running_mean", "var": "running_var"}[kind]
@@ -147,10 +192,14 @@ def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
 
 
 # keys of a reference checkpoint that no model of the port holds and the JAX
-# package's key maps drop too (torch_convert.py:140,151,206): classifier
-# heads, the average pool and thop's profiling counters
+# package's key maps drop too (torch_convert.py:135-141,151,206,317):
+# classifier heads (a MaxViT's whole ``head``), the average pool, thop's
+# profiling counters and MIST's ``Block_decoder.conv3``, defined but dead in
+# the reference forward
 _DROPPED = re.compile(r"(^|\.)(fc|head|avgpool)\.[^.]+$"
-                      r"|(^|\.)(total_ops|total_params)$")
+                      r"|(^|\.)(total_ops|total_params)$"
+                      r"|^(backbone\d?\.)?head\."
+                      r"|^decoder\.block_\d\.conv3\.")
 
 
 def load_reference(model: nn.Module, state_dict) -> list[str]:

@@ -43,6 +43,10 @@ def test_import_pulls_in_no_jax():
             "import pranet2_tpu_torch.data.volumes\n"
             "import pranet2_tpu_torch.cli.train_multiclass\n"
             "import pranet2_tpu_torch.cli.test_multiclass\n"
+            "import pranet2_tpu_torch.models.backbones.maxvit\n"
+            "import pranet2_tpu_torch.models.decoders\n"
+            "import pranet2_tpu_torch.models.merit\n"
+            "import pranet2_tpu_torch.models.mist\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

@@ -1204,3 +1204,60 @@ def test_emcad_bf16_kernel_forward_matches_module_chain(no_tf32, encoder,
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
         assert ((g.float() - w).abs().max() / w.abs().max()).item() < 0.1
+
+
+# -------------------------------------- MERIT's and MIST's shapes (224^2)
+
+# the gates of a CASCADE or CAM decoder pass at 256 (MERIT's first pass,
+# MIST's only one); its pass at 224 gates at EMCAD's 14, 28 and 56 px
+MAXVIT_GATE_SIDES = (16, 32, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 6], ids=["serve_chunk", "train_batch"])
+@pytest.mark.parametrize("side", MAXVIT_GATE_SIDES)
+def test_dsra_gate_at_maxvit_shapes(cuda, side, n, dtype):
+    """The gates of MERIT and MIST on Synapse (9 classes at 16/32/64 px):
+    one launch, within the gate's tolerance of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(side + n)
+    fg, cf, cb = (torch.randn((n, 9, side, side), generator=g, device=cuda,
+                              dtype=torch.float32).to(dtype)
+                  for _ in range(3))
+    before = dsra.dsra_gate.launches
+    got = ops.dsra_gate(fg, cf, cb)
+    torch.cuda.synchronize()
+    assert dsra.dsra_gate.launches == before + 1 and got.dtype == dtype
+    tol = GATE_TOL[dtype]
+    torch.testing.assert_close(got, dsra.dsra_gate_plain(fg, cf, cb),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,gates", [("merit_cascaded", 6),
+                                        ("mist_cam", 3)])
+def test_maxvit_bf16_kernel_forward_matches_module_chain(no_tf32, name,
+                                                         gates):
+    """MERIT-small and MIST at full depth, 224 x 224 (MERIT's backbones at
+    256 and 224, MIST's at 256), batch 2, 9 classes, dual: the bf16 eval
+    forward launches the gate kernel 6 and 3 times and nothing else, and
+    its 8 maps are within 0.1 of the largest |map| of the float32 model
+    (its gates on the float32 kernel)."""
+    ref = get_model(name, device=no_tf32, num_classes=9).eval()
+    model = get_model(name, device=no_tf32, dtype=torch.bfloat16,
+                      num_classes=9).eval()
+    model.load_state_dict(ref.state_dict())
+    x = torch.rand((2, 1, 224, 224), device=no_tf32,
+                   generator=torch.Generator(device=no_tf32).manual_seed(0))
+    counters = (pvt_mlp.mlp_block, pvt_attn.sra_attention, dsra.dsra_gate,
+                dsra.dsra_level, stem.stem_pool)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        got = model(x)
+        counts = tuple(f.launches - b for f, b in zip(counters, before))
+        want = ref(x)
+    assert counts == (0, 0, gates, 0, 0)
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        assert ((g.float() - w).abs().max() / w.abs().max()).item() < 0.1

@@ -44,7 +44,7 @@ from pranet2_tpu.train import multiclass as jax_mc
 from pranet2_tpu.train.optim import make_optimizer as jax_make_optimizer
 from pranet2_tpu.train.state import TrainState as JaxTrainState
 from pranet2_tpu.utils.torch_convert import convert_state_dict, emcad_key_map
-from pranet2_tpu_torch import get_model
+from pranet2_tpu_torch import get_model, list_models
 from pranet2_tpu_torch.cli import test_multiclass as port_test_cli
 from pranet2_tpu_torch.cli import train_multiclass as port_train_cli
 from pranet2_tpu_torch.train import TrainState, make_optimizer
@@ -421,13 +421,44 @@ def test_train_cli_prints_jax_lines(tmp_path, capsys):
 
 @pytest.mark.parametrize("cli", ["train", "test"])
 @pytest.mark.parametrize("model", ["merit", "merit_parallel", "mist"])
-def test_cli_refuses_models_not_ported(tmp_path, cli, model):
-    """MERIT and MIST wait for ROADMAP Queue 1 item 7: both CLIs refuse
-    them, naming it, before reading any data."""
-    args = (["--root_path", str(tmp_path), "--list_dir", str(tmp_path)]
-            if cli == "train" else
-            ["--volume_path", str(tmp_path), "--list_dir", str(tmp_path),
-             "--checkpoint", "x.pth"])
-    main = port_train_cli.main if cli == "train" else port_test_cli.main
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        main(["--model", model, "--device", "cpu", *args])
+def test_cli_builds_every_model_as_jax(monkeypatch, cli, model):
+    """Both CLIs build MERIT, MERIT-parallel and MIST from JAX's flags and
+    defaults as JAX's ``build_model`` does: the same registry model, the
+    dataset's classes, dual heads (8 maps), the same settings (the port's
+    model on the meta device, no weights drawn).  The port's registry holds
+    JAX's twelve names."""
+    from pranet2_tpu.models import list_models as jax_list_models
+    from pranet2_tpu.models import merit as jax_merit
+    from pranet2_tpu.models.backbones import maxvit as jax_maxvit
+
+    required = (["--root_path", "r", "--list_dir", "l"] if cli == "train"
+                else ["--volume_path", "v", "--list_dir", "l",
+                      "--checkpoint", "c.pth"])
+    jax_mod, port_mod = {"train": (jax_train_cli, port_train_cli),
+                         "test": (jax_test_cli, port_test_cli)}[cli]
+    argv = required + ["--model", model]
+    jargs = argparse.Namespace(**_parsed_args(jax_mod, argv, monkeypatch))
+    pargs = argparse.Namespace(**_parsed_args(port_mod, argv, monkeypatch))
+    want = jax_train_cli.build_model(model, 9, jargs)
+    with torch.device("meta"):
+        got = port_train_cli.build_model(model, 9, pargs, device="meta",
+                                         img_size=224)
+    assert type(got).__name__ == type(want).__name__
+    assert got.dual is want.dual is True
+    assert got.decoder.use_softmax is want.use_softmax is True
+    assert got.img_size_s1 == tuple(want.img_size_s1)
+    backbones = ["maxxvit_rmlp_small_rw_256"]
+    if hasattr(want, "img_size_s2"):
+        assert got.img_size_s2 == tuple(want.img_size_s2)
+        backbones = jax_merit._SCALE_BACKBONES[want.model_scale]
+    for i, name in enumerate(backbones, start=1):
+        cfg = jax_maxvit.MAXVIT_CONFIGS[name]
+        bb = getattr(got, f"backbone{i}")
+        assert bb.stem.conv1.out_channels == cfg["stem_width"][0]
+        assert [len(st.blocks) for st in bb.stages] == list(cfg["depths"])
+        assert bb.norm.normalized_shape == (cfg["embed_dim"][-1],)
+    heads = [m for n, m in got.named_modules()
+             if n.endswith(("ConvBlock1_fg.conv", "out_head4_fg"))]
+    assert [h.out_channels for h in heads] == [want.num_classes] == [9]
+    assert list_models() == sorted(jax_list_models()) and len(
+        list_models()) == 12
