@@ -54,7 +54,7 @@
 6. The multiclass phase (``serve_volume_path``, ``run_multiclass_training``,
    ``run_multiclass_cli``): EMCAD served on PVTv2-b2 and on ResNet-50
    (bf16, 9 classes, random weights from seed 0) over one synthetic
-   CT-sized volume (48 slices of 512^2, labels 0-8) through
+   CT-sized volume (32 slices of 512^2, labels 0-8) through
    ``train.multiclass.test_volumes`` (host zoom to 224, chunks of 16,
    ``fg_only``), with the launch counters set to 0 just before and read
    just after; the forward timed (CUDA events) with its device time by
@@ -83,10 +83,32 @@
    and ``cli.train_multiclass --model merit`` (one epoch), each a process.
    Row 2 is held against its plain version at MERIT's and MIST's gates
    (9 classes at 14/28/56 and 16/32/64 px) in step 2.
-8. Prints one JSON line of kernel results (``launches`` summed over the
-   served paths, the one-forward checks and the training parts, by path in
-   ``launches_by_path``), then as the last line
-   ``{"ok": true, "device": {...}}``.
+8. The parallel phase (``run_parallel``), on the one card (two ranks or
+   two replicas share it) unless two are present: two spawned ranks
+   (gloo, ``parallel.spawn.launch``) take the float64 PraNet-V2 step at
+   256 x 256, a row each, against this process's step on both rows (``train_card_vs_cpu``'s
+   bounds, and the parameters after clip + Adam), then float32 steps at
+   352 x 352, global batch 8, timed, with rank 0's profile of the
+   gradient all-reduce; each holds the gate kernel at its shapes and
+   counts 3 ``dsra_gate`` a step.  ``torchrun --nproc_per_node 2 -m
+   pranet2_tpu_torch.cli.train_binary`` (two short epochs: rank 0's log
+   lines only, one snapshot set).  A world-1 NCCL group: the EMCAD-B2 step
+   through ``convert_sync_batchnorm`` and ``data_parallel`` against the
+   step without a group, and SyncBatchNorm's Function over NCCL against
+   ``F.batch_norm``.  ``BinaryPredictor(devices=["cuda:0"] * 2)`` (bf16,
+   352, batch 16) against one device's: the masks equal to one device's
+   at the chunk's batch (float32: within a level of batch 16's), a
+   ``stem_pool`` and 3 ``dsra_level`` a forward in each replica, each
+   replica's kernels held at its chunk's shapes.  With two cards, the
+   ranks and the replicas again on two cards (NCCL); else "skipped (1
+   card)".  Then
+   ``cli.reproduce_baseline`` as a process on a reference ``.pth`` and a
+   port ``.pt`` (the table, the PNGs, the PASS verdict, exit 1 on FAIL).
+   Prints one ``parallel:`` JSON line (its other lines start otherwise).
+9. Prints one JSON line of kernel results (``launches`` summed over the
+   served paths, the one-forward checks, the training parts and the
+   parallel phase's ranks and replicas, by path in ``launches_by_path``),
+   then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside the
 repository, or when any check fails.
@@ -1445,6 +1467,15 @@ def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
         pred.close()
 
 
+def _wait(launched):
+    """``launched`` (``BinaryPredictor._launch``'s chunks) once every
+    chunk's copy to the host is done."""
+    for _, ready in launched:
+        if ready is not None:
+            ready.synchronize()
+    return launched
+
+
 def host_time(pred, chunk) -> dict:
     """Host clock for one batch's decode (thread pool) and post-processing
     (exact mode: float32 logits resized to native size, one image at a
@@ -1452,8 +1483,7 @@ def host_time(pred, chunk) -> dict:
     t0 = time.perf_counter()
     batch = pred._preprocess(chunk)
     t1 = time.perf_counter()
-    launched = pred._launch(batch)
-    launched[1].synchronize()
+    launched = _wait(pred._launch(batch))
     t2 = time.perf_counter()
     masks = list(pred._postprocess(launched, chunk))
     t3 = time.perf_counter()
@@ -1596,16 +1626,57 @@ def write_polyp_set(np, root, n: int, seed: int) -> None:
         Image.fromarray(mask).save(os.path.join(root, "masks", f"{i}.png"))
 
 
+def _grads(model) -> dict:
+    return {k: None if p.grad is None else p.grad.detach().clone()
+            for k, p in model.named_parameters()}
+
+
+def _stats(model) -> dict:
+    return {k: b.clone() for k, b in model.named_buffers()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _hold_f64_step(what: str, ref_grads, ref_stats, got_grads,
+                   got_stats) -> tuple[float, float]:
+    """A float64 step's gradients and BatchNorm running statistics against
+    the reference's: each parameter's gradient within 1e-6 of its largest
+    |value| plus 1e-12 of the model's largest (a gradient that is zero in
+    exact arithmetic, as a BatchNorm bias's before another BatchNorm, is
+    rounding noise of the whole), a gradient on both sides or on neither;
+    the statistics within 1e-8 relative and 1e-10 absolute.  Returns the
+    worst gradient's and statistic's share of their bounds."""
+    scale = max(g.abs().max().item() for g in ref_grads.values()
+                if g is not None)
+    worst_grad = 0.0
+    for k, want in ref_grads.items():
+        got = got_grads[k]
+        if want is None or got is None:
+            if (want is None) != (got is None):
+                raise AssertionError(f"{what}: {k} has a gradient on one "
+                                     "side only")
+            continue
+        err = (got.to(want.device) - want).abs().max().item()
+        bound = 1e-6 * want.abs().max().item() + 1e-12 * scale
+        if err > bound:
+            raise AssertionError(f"{what}: gradient of {k} off by {err:.3g} "
+                                 f"(bound {bound:.3g})")
+        worst_grad = max(worst_grad, err / bound)
+    worst_stat = max(((got_stats[k].to(b.device) - b).abs()
+                      / (1e-10 + 1e-8 * b.abs())).max().item()
+                     for k, b in ref_stats.items())
+    if worst_stat > 1:
+        raise AssertionError(f"{what}: BatchNorm statistics off "
+                             f"({worst_stat:.3g} times the tolerance)")
+    return worst_grad, worst_stat
+
+
 def train_card_vs_cpu(torch, dev) -> dict:
     """One train step's forward and backward of ``pranet_v2`` (full width
     and depth, batch 2 at 256 x 256, the 0.75 scale's size) in float64 on
     the card, through the gate's float64 kernel, and on the CPU, with the
-    same weights and batch.  Held: the loss within 1e-9 relative; each
-    parameter's gradient within 1e-6 of its largest |value| plus 1e-12 of
-    the model's largest (a gradient that is zero in exact arithmetic, as
-    a BatchNorm bias's before another BatchNorm, is rounding noise of the
-    whole); the BatchNorm running statistics within 1e-8 relative and
-    1e-10 absolute.  Float64, because train-mode BatchNorm carries float32
+    same weights and batch.  Held: the loss within 1e-9 relative, the
+    gradients and BatchNorm running statistics by ``_hold_f64_step``.
+    Float64, because train-mode BatchNorm carries float32
     ordering noise through about 50 layers into percent-level gradient
     differences."""
     from pranet2_tpu_torch import get_model
@@ -1632,34 +1703,8 @@ def train_card_vs_cpu(torch, dev) -> dict:
     if launches < 3:
         raise AssertionError(f"float64 step: {launches} dsra_gate launches")
     loss_err = abs(loss_gpu.item() - loss_cpu.item()) / abs(loss_cpu.item())
-    cpu_p, gpu_p = dict(cpu.named_parameters()), dict(gpu.named_parameters())
-    scale = max(p.grad.abs().max().item() for p in cpu_p.values()
-                if p.grad is not None)
-    worst_grad = 0.0
-    for k, p in cpu_p.items():
-        q = gpu_p[k].grad
-        if p.grad is None or q is None:
-            if (p.grad is None) != (q is None):
-                raise AssertionError(f"float64 step: {k} has a gradient on "
-                                     "one side only")
-            continue
-        err = (q.cpu() - p.grad).abs().max().item()
-        bound = 1e-6 * p.grad.abs().max().item() + 1e-12 * scale
-        if err > bound:
-            raise AssertionError(f"float64 step: gradient of {k} off by "
-                                 f"{err:.3g} (bound {bound:.3g})")
-        worst_grad = max(worst_grad, err / bound)
-    worst_stat = 0.0
-    gpu_b = dict(gpu.named_buffers())
-    for k, b in cpu.named_buffers():
-        if not k.endswith(("running_mean", "running_var")):
-            continue
-        err = (gpu_b[k].cpu() - b).abs()
-        bound = 1e-10 + 1e-8 * b.abs()
-        worst_stat = max(worst_stat, (err / bound).max().item())
-    if worst_stat > 1:
-        raise AssertionError(f"float64 step: BatchNorm statistics off "
-                             f"({worst_stat:.3g} times the tolerance)")
+    worst_grad, worst_stat = _hold_f64_step(
+        "float64 step", _grads(cpu), _stats(cpu), _grads(gpu), _stats(gpu))
     if loss_err > 1e-9:
         raise AssertionError(f"float64 step: loss {loss_gpu.item()} on the "
                              f"card, {loss_cpu.item()} on the CPU")
@@ -1847,15 +1892,16 @@ CLI_BENCH = ("--models", "pranet_v1", "pranet_v1_resnet", "--batch_sizes",
              "1", "16", "--iters", "10", "--windows", "3")
 
 
-def _cli(module: str, *args) -> tuple[str, float]:
+def _cli(module: str, *args, expect_rc: int = 0) -> tuple[str, float]:
     """``python -m pranet2_tpu_torch.cli.<module> args`` from the checkout;
-    its standard output and wall seconds.  Fails on a non-zero exit."""
+    its standard output and wall seconds.  Fails on an exit code other
+    than ``expect_rc``."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m",
                         f"pranet2_tpu_torch.cli.{module}", *args], cwd=here,
                        capture_output=True, text=True, timeout=300)
-    if r.returncode:
+    if r.returncode != expect_rc:
         raise AssertionError(f"cli.{module} exited {r.returncode}:\n"
                              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
     return r.stdout, time.perf_counter() - t0
@@ -1934,7 +1980,9 @@ def run_cli(torch, np) -> dict:
 # its CLIs
 # ---------------------------------------------------------------------------
 
-EMCAD_VOLUME = (48, 512, 512)   # one CT-sized volume: 48 slices of 512^2
+# one CT-sized volume: 32 slices of 512^2 (Synapse's volumes hold 85-198;
+# cut for the script's time limit), two chunks of 16
+EMCAD_VOLUME = (32, 512, 512)
 EMCAD_CHUNK = 16
 _NONE = {**_V1, "stem_pool": 0, **_NO_RES2, **_NO_PVT}
 # served volume paths: label -> (model, get_model keyword arguments, the
@@ -2523,6 +2571,663 @@ def run_maxvit_cli(torch, np) -> dict:
             "train_lines": tlines}
 
 
+# ---------------------------------------------------------------------------
+# the parallel phase: data-parallel training (ranks) and multi-card serving
+# (replicas), run on the one card unless two are present
+# ---------------------------------------------------------------------------
+
+PAR_F64_SIZE, PAR_F64_BATCH = 256, 2        # train_card_vs_cpu's step
+PAR_F32_SIZE, PAR_F32_BATCH, PAR_F32_STEPS = 352, 8, 4  # global batch
+PAR_PROFILED_STEPS = 2
+PAR_CLI_TRAIN, PAR_CLI_TEST = 16, 8         # torchrun CLI: images
+PAR_SERVE_IMAGES = 48                       # three batches of 16
+PAR_RANK_TIMEOUT_S = 300                    # each rank's collectives
+PAR_LAUNCH_TIMEOUT_S = 600                  # the spawned pair, all told
+PAR_PARAM_TOL = 1e-7    # after clip + Adam: 1e-3 of the learning rate
+RB_SETS, RB_IMAGES = ("CVC-300", "Kvasir"), 8
+
+
+def _par_f64_step(torch, dev):
+    """One float64 train step of ``pranet_v2`` (full width and depth, the
+    recipe's clip + Adam) on this process's rows of a seeded global batch
+    of 2 at 256 x 256 (both rows without a group), on its current card.
+    Returns the loss (averaged over the ranks), the gradients as
+    ``apply_gradients`` took them, the BatchNorm statistics and the
+    parameters after the step, and the launches of the step alone."""
+    from pranet2_tpu_torch import get_model, parallel
+    from pranet2_tpu_torch.train import TrainState, make_optimizer
+    from pranet2_tpu_torch.train.binary import make_train_step
+
+    model = get_model("pranet_v2", device=dev, num_class=1,
+                      generator=torch.Generator().manual_seed(5)).double()
+    net = parallel.data_parallel(model)
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-4,
+                                             clip_value=0.5))
+    grads = {}
+    apply = state.apply_gradients
+
+    def spy():
+        grads.update(_grads(model))
+        apply()
+
+    state.apply_gradients = spy
+    step = make_train_step(net, target_size=PAR_F64_SIZE, rescale=False)
+    g = torch.Generator().manual_seed(6)
+    s = PAR_F64_SIZE
+    x = torch.randn((PAR_F64_BATCH, 3, s, s), generator=g,
+                    dtype=torch.float64)
+    gts = (torch.rand((PAR_F64_BATCH, 1, s, s), generator=g) > 0.6).double()
+    rows = parallel.shard_rows(PAR_F64_BATCH, parallel.rank(),
+                               parallel.world())
+    _reset_counts()
+    state, loss, _ = step(state, x[rows].to(dev), gts[rows].to(dev))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    return {"loss": float(parallel.all_mean(loss)), "grads": grads,
+            "stats": _stats(model),
+            "params": {k: p.detach().clone()
+                       for k, p in model.named_parameters()},
+            "launches": launches, "kind": type(net).__name__}
+
+
+def _par_compare(ref, got) -> dict:
+    """The data-parallel float64 step against one process's, on the card:
+    the loss within 1e-9 relative and the gradients and statistics by
+    ``_hold_f64_step`` (``train_card_vs_cpu``'s bounds), and the parameters
+    after clip + Adam within ``PAR_PARAM_TOL`` (Adam's first step is
+    sign-like, so a gradient's error shows in the gradients, not here)."""
+    what = "two-rank float64 step"
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    if loss_err > 1e-9:
+        raise AssertionError(f"{what}: loss {got['loss']}, one process "
+                             f"{ref['loss']}")
+    worst_grad, worst_stat = _hold_f64_step(what, ref["grads"], ref["stats"],
+                                            got["grads"], got["stats"])
+    worst_param = max((got["params"][k].to(p.device) - p).abs().max().item()
+                      for k, p in ref["params"].items())
+    if worst_param > PAR_PARAM_TOL:
+        raise AssertionError(f"{what}: parameters after clip + Adam off by "
+                             f"{worst_param:.3g}")
+    return {"loss": ref["loss"], "loss_rel_err": loss_err,
+            "grad_worst_share_of_tol": worst_grad,
+            "bn_worst_share_of_tol": worst_stat,
+            "param_max_abs_err": worst_param}
+
+
+def _hold_gates(torch, dev, batch: int, sides, dtype) -> float:
+    """``dsra_gate`` on ``dev`` at a rank's gate shapes (one channel at each
+    side) against ``dsra_gate_plain``; the worst error."""
+    from pranet2_tpu_torch.ops import dsra
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    for s in sides:
+        fg, cf, cb = (torch.randn((batch, 1, s, s), generator=g, device=dev,
+                                  dtype=dtype) for _ in range(3))
+        with torch.no_grad():
+            got = dsra.dsra_gate(fg, cf, cb, True)
+            want = dsra.dsra_gate_plain(fg, cf, cb, True)
+        err = (got.double() - want.double()).abs()
+        if dtype == torch.float64:
+            ok = err.max() <= F64_GATE_TOL * want.abs().max()
+        else:
+            tol = GATE_TOL[str(dtype).removeprefix("torch.")]
+            ok = (err <= tol + tol * want.double().abs()).all()
+        if not bool(ok):
+            raise AssertionError(f"dsra_gate on {dev} at {(batch, 1, s, s)} "
+                                 f"{dtype}: max {err.max().item()}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def _par_f32_steps(torch, dev) -> dict:
+    """float32 train steps of ``pranet_v2`` at 352 x 352 on this rank's rows
+    of a global batch of 8 (the torchrun CLI's step at scale 1, PyTorch's
+    default TF32 flags): one warm-up, ``PAR_F32_STEPS`` timed by the host
+    clock to a synchronize, then ``PAR_PROFILED_STEPS`` under
+    torch.profiler (rank 0's trace read for the gradient all-reduce); the
+    launches over all of them, and one all-reduce of a gradient-sized
+    buffer timed alone."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from pranet2_tpu_torch import get_model, parallel
+    from pranet2_tpu_torch.train import TrainState, make_optimizer
+    from pranet2_tpu_torch.train.binary import make_train_step
+
+    model = get_model("pranet_v2", device=dev, num_class=1,
+                      generator=torch.Generator().manual_seed(5))
+    net = parallel.data_parallel(model)
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-4,
+                                             clip_value=0.5))
+    step = make_train_step(net, target_size=PAR_F32_SIZE, rescale=False)
+    g = torch.Generator().manual_seed(7)
+    s, n = PAR_F32_SIZE, PAR_F32_BATCH
+    x = torch.randn((n, 3, s, s), generator=g)
+    gts = (torch.rand((n, 1, s, s), generator=g) > 0.6).float()
+    rows = parallel.shard_rows(n, parallel.rank(), parallel.world())
+    x, gts = x[rows].to(dev), gts[rows].to(dev)
+    _reset_counts()
+    _user_flags(torch, lambda: step(state, x, gts))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(PAR_F32_STEPS):
+        t0 = time.perf_counter()
+        _user_flags(torch, lambda: step(state, x, gts))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(PAR_PROFILED_STEPS):
+            _user_flags(torch, lambda: step(state, x, gts))
+        torch.cuda.synchronize()
+    launches = _launch_counts()
+    # the backend's all-reduce events, each from its start to its end on
+    # the backend's threads: the gradient buckets (DDP's, overlapping the
+    # backward) and SyncBatchNorm's statistics (2C + 1 values at most)
+    reduce_events = {"gradient_buckets": [0.0, 0], "batchnorm_stats": [0.0, 0]}
+    for e in prof.events():
+        if not re.fullmatch(r"(gloo|nccl):all_reduce", e.name):
+            continue
+        numel = math.prod(e.input_shapes[0]) if e.input_shapes else 0
+        kind = "gradient_buckets" if numel > 8192 else "batchnorm_stats"
+        reduce_events[kind][0] += e.cpu_time_total / 1e3 / PAR_PROFILED_STEPS
+        reduce_events[kind][1] += 1
+    n_grad = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    flat = torch.zeros(n_grad, device=dev)
+    dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - t0) * 1e3
+    step_ms = statistics.median(times)
+    allreduce_ms = reduce_events["gradient_buckets"][0]
+    return {"step_ms": step_ms, "step_ms_all": times,
+            "rank_img_per_s": (rows.stop - rows.start) / step_ms * 1e3,
+            "global_img_per_s": n / step_ms * 1e3,
+            "grad_mb": 4 * n_grad / 1e6,
+            "profiled_allreduce_ms_per_step": allreduce_ms,
+            "allreduce_share": allreduce_ms / step_ms,
+            "allreduce_events_ms_calls": reduce_events,
+            "allreduce_alone_ms": alone,
+            "launches": launches,
+            "gate_err": _hold_gates(torch, dev, n // parallel.world(),
+                                    (s // 32, s // 16, s // 8),
+                                    torch.float32)}
+
+
+def _par_rank(devices) -> dict:
+    """One spawned rank of the two-rank check, in the group: the float64
+    step on its rows and the float32 steps, and the gate kernel held at
+    its shapes.  Returns its counts and timings; rank 0 also its float64
+    step, for the caller to hold against one process."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device(devices[rank])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f64 = _par_f64_step(torch, dev)
+    if f64["kind"] != "DistributedDataParallel":
+        raise AssertionError(f"rank {rank}: the model is {f64['kind']}")
+    f64_gate_err = _hold_gates(
+        torch, dev, PAR_F64_BATCH // world,
+        (PAR_F64_SIZE // 32, PAR_F64_SIZE // 16, PAR_F64_SIZE // 8),
+        torch.float64)
+    summary = {"rank": rank, "device": str(devices[rank]),
+               "f64_launches": f64["launches"], "f64_gate_err": f64_gate_err,
+               "f32": _par_f32_steps(torch, dev)}
+    if rank == 0:
+        summary["f64_step"] = {k: f64[k] for k in ("loss", "grads", "stats",
+                                                   "params")}
+    return summary
+
+
+def run_ranks(torch, devices) -> list:
+    """The two-rank check on ``devices`` (one card twice: gloo; two cards:
+    nccl), each rank a spawned process (``parallel.spawn.launch``), rank
+    0's float64 step held against the same step taken here, in one
+    process on ``devices[0]``; fails if a rank fails, hangs past
+    ``PAR_LAUNCH_TIMEOUT_S`` or took another number of gate launches than
+    3 a step.  Returns the ranks' summaries."""
+    from pranet2_tpu_torch.parallel import spawn
+
+    backend = ("nccl" if len(set(devices)) == len(devices)
+               and all(d.startswith("cuda") for d in devices) else "gloo")
+    ref = _par_f64_step(torch, torch.device(devices[0]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn.launch(_par_rank, len(devices), tmp, devices,
+                             backend=backend, devices=devices,
+                             timeout=PAR_LAUNCH_TIMEOUT_S,
+                             rank_timeout=PAR_RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    ranks[0]["f64"] = _par_compare(ref, ranks[0].pop("f64_step"))
+    steps = 1 + PAR_F32_STEPS + PAR_PROFILED_STEPS
+    for r in ranks:
+        if (r["f64_launches"]["dsra_gate"] != 3
+                or r["f32"]["launches"]["dsra_gate"] != 3 * steps
+                or any(v for k, v in {**r["f64_launches"],
+                                      **r["f32"]["launches"]}.items()
+                       if k != "dsra_gate")):
+            raise AssertionError(f"rank {r['rank']}: launches "
+                                 f"{r['f64_launches']}, {r['f32']['launches']}")
+    ranks[0]["backend"], ranks[0]["wall_s"] = backend, wall
+    return ranks
+
+
+def run_torchrun_cli(np) -> dict:
+    """``torchrun --standalone --nproc_per_node 2 -m
+    pranet2_tpu_torch.cli.train_binary`` as a user runs it (float32, 352,
+    global batch 8, 16 training images, two epochs: 12 steps, the in-loop
+    evaluation on 8 more each epoch): exit 0, every log line from rank 0
+    (``--tee 3`` prefixes each with its rank), one snapshot set; ms a step
+    from the second epoch's line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        write_polyp_set(np, os.path.join(root, "TrainDataset"),
+                        PAR_CLI_TRAIN, seed=21)
+        write_polyp_set(np, os.path.join(root, "TestDataset", "SYN"),
+                        PAR_CLI_TEST, seed=22)
+        snap = os.path.join(root, "snap")
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [here, os.environ.get("PYTHONPATH", "")])}
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", "--tee", "3", "--log-dir",
+               os.path.join(root, "logs"), "-m",
+               "pranet2_tpu_torch.cli.train_binary", "--train_path",
+               os.path.join(root, "TrainDataset"), "--test_root",
+               os.path.join(root, "TestDataset"), "--eval_datasets", "SYN",
+               "--batchsize", str(PAR_F32_BATCH), "--trainsize",
+               str(PAR_F32_SIZE), "--epoch", "3", "--snapshot_every", "2",
+               "--train_save", snap]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode:
+            raise AssertionError(f"torchrun train_binary exited "
+                                 f"{r.returncode}:\n{r.stdout[-3000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        snaps = sorted(os.listdir(snap))
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    by_rank = {}
+    for ln in lines:
+        m = re.match(r"\[\w*?(\d+)\]:(.*)", ln)
+        if m:
+            by_rank.setdefault(int(m.group(1)), []).append(m.group(2))
+    epochs = [ln for ln in by_rank.get(0, []) if "train img/s" in ln]
+    if (set(by_rank) != {0} or len(epochs) != 2
+            or snaps != ["best.pt", "epoch_2.pt", "last.pt"]
+            or not any("backend gloo" in ln or "backend nccl" in ln
+                       for ln in by_rank[0])):
+        raise AssertionError(f"torchrun train_binary: lines by rank "
+                             f"{by_rank}, snapshots {snaps}")
+    img_per_s = float(re.search(r"\(([\d.]+) train img/s", epochs[-1])
+                      .group(1))
+    return {"wall_s": wall, "lines": by_rank[0], "snapshots": snaps,
+            "epoch2_img_per_s": img_per_s,
+            "epoch2_ms_per_step": PAR_F32_BATCH / img_per_s * 1e3}
+
+
+def _emcad_step(torch, dev, convert: bool) -> dict:
+    """One EMCAD-B2 float64 train step (9 classes, 224 x 224, batch 6, the
+    PVT encoder's drop path on) on the card: its loss, gradients and
+    launches; ``convert``: through ``convert_sync_batchnorm`` and
+    ``data_parallel`` in the current group."""
+    from pranet2_tpu_torch import get_model, parallel
+    from pranet2_tpu_torch.train import TrainState, make_optimizer
+    from pranet2_tpu_torch.train.multiclass import (MulticlassTrainConfig,
+                                                    make_multiclass_train_step)
+
+    cfg = MulticlassTrainConfig(num_classes=EMCAD_CLASSES,
+                                img_size=EMCAD_SIZE,
+                                batch_size=EMCAD_TRAIN_BATCH)
+    model = get_model("emcad", device=dev, num_classes=EMCAD_CLASSES,
+                      encoder="pvt_v2_b2",
+                      generator=torch.Generator().manual_seed(8)).double()
+    net = model
+    if convert:
+        model = parallel.convert_sync_batchnorm(model)
+        net = parallel.data_parallel(model)
+        if net is not model:
+            raise AssertionError("data_parallel wrapped a world-1 model")
+    state = TrainState(model, make_optimizer(
+        model.parameters(), cfg.lr, clip_value=None,
+        weight_decay=cfg.weight_decay))
+    grads = {}
+    apply = state.apply_gradients
+
+    def spy():
+        grads.update(_grads(model))
+        apply()
+
+    state.apply_gradients = spy
+    step = make_multiclass_train_step(net, cfg)
+    g = torch.Generator().manual_seed(9)
+    s = EMCAD_SIZE
+    x = torch.randn((EMCAD_TRAIN_BATCH, 1, s, s), generator=g,
+                    dtype=torch.float64).to(dev)
+    y = torch.randint(0, EMCAD_CLASSES, (EMCAD_TRAIN_BATCH, s, s),
+                      generator=g).to(dev)
+    _reset_counts()
+    state, loss = step(state, x, y)
+    torch.cuda.synchronize()
+    return {"loss": loss.item(), "grads": grads, "launches": _launch_counts(),
+            "sync_bns": sum(type(m).__name__ == "SyncBatchNorm"
+                            for m in model.modules())}
+
+
+def _grad_diff(a, b) -> float:
+    if [k for k in a if a[k] is None] != [k for k in b if b[k] is None]:
+        raise AssertionError("world-1 step: other parameters have gradients")
+    return max((a[k] - b[k]).abs().max().item() for k in a
+               if a[k] is not None)
+
+
+def run_world1_nccl(torch, dev) -> dict:
+    """A world-1 NCCL group on the card: the EMCAD-B2 step through
+    ``convert_sync_batchnorm`` + ``data_parallel`` (which wraps nothing at
+    world 1) against the same step without a group, held within 1e-6 of
+    the largest gradient and the loss within 1e-9 relative; and
+    ``SyncBatchNorm``'s autograd Function, all-reducing over NCCL, against
+    ``F.batch_norm`` (float32, 1e-5 of max).  The step is float64: in
+    float32 two runs of it without a group differ by 1.3e-6 to 1.9e-6 of
+    the largest gradient (the resizes' backward adds with atomics), so
+    1e-6 of max could not tell a fault from that noise."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.parallel.sync_batchnorm import _SyncBatchNormFn
+
+    plain = _emcad_step(torch, dev, convert=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            grouped = _emcad_step(torch, dev, convert=True)
+            g = torch.Generator(device=dev).manual_seed(10)
+            x = torch.randn((EMCAD_TRAIN_BATCH, 64, 56, 56), generator=g,
+                            device=dev) * 2 + 1
+            dy = torch.randn(x.shape, generator=g, device=dev)
+            w, b = (torch.randn(64, generator=g, device=dev)
+                    for _ in range(2))
+            outs = []
+            for fn in ("plain", "sync"):
+                xi, wi, bi = (t.clone().requires_grad_() for t in (x, w, b))
+                rm, rv = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+                y = (F.batch_norm(xi, rm, rv, wi, bi, True, 0.1, 1e-5)
+                     if fn == "plain" else _SyncBatchNormFn.apply(
+                         xi, wi, bi, rm, rv, 1e-5, 0.1))
+                y.backward(dy)
+                outs.append((y, xi.grad, wi.grad, bi.grad, rm, rv))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    fn_err = max(((p - q).abs().max() / p.abs().max()).item()
+                 for p, q in zip(*outs))
+    if fn_err > 1e-5:
+        raise AssertionError(f"SyncBatchNorm's Function over NCCL: "
+                             f"{fn_err:.3g} of max from F.batch_norm")
+    scale = max(v.abs().max().item() for v in plain["grads"].values())
+    diff = _grad_diff(grouped["grads"], plain["grads"])
+    if (abs(grouped["loss"] - plain["loss"]) > 1e-9 * abs(plain["loss"])
+            or diff > 1e-6 * scale
+            or grouped["launches"] != plain["launches"]
+            or plain["launches"]["dsra_gate"] != 3 or not grouped["sync_bns"]):
+        raise AssertionError(
+            f"world-1 NCCL step: loss {grouped['loss']} vs {plain['loss']}, "
+            f"gradients {diff:.3g} apart (max {scale:.3g}), launches "
+            f"{grouped['launches']} vs "
+            f"{plain['launches']}")
+    return {"loss": plain["loss"], "grad_max_abs_diff": diff,
+            "grad_scale": scale,
+            "bit_for_bit": diff == 0.0, "sync_batchnorms": grouped["sync_bns"],
+            "function_rel_err": fn_err, "launches": grouped["launches"]}
+
+
+def _hold_replica_kernels(torch, dev, batch: int) -> float:
+    """``stem_pool`` and ``dsra_level`` on a replica's card at its chunk's
+    shapes (bf16, 352: the stem map and the three decoder levels) against
+    their plain versions; the worst error."""
+    from pranet2_tpu_torch.ops import dsra, stem
+    from pranet2_tpu_torch.testing import level_excess
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    z = torch.randn((batch, 64, SIZE // 2, SIZE // 2), generator=g,
+                    device=dev).to(bf)
+    bn = (1 + 0.1 * torch.randn(64, generator=g, device=dev),
+          0.1 * torch.randn(64, generator=g, device=dev),
+          0.1 * torch.randn(64, generator=g, device=dev),
+          0.5 + torch.rand(64, generator=g, device=dev))
+    with torch.no_grad():
+        if not torch.equal(stem.stem_pool(z, *bn, 1e-5),
+                           stem.stem_pool_plain(z, *bn, 1e-5)):
+            raise AssertionError(f"stem_pool on {dev} differs from its "
+                                 f"plain version")
+        worst = 0.0
+        for prev, ra, emit in ((44, 11, True), (11, 22, False),
+                               (22, 44, False)):
+            ts = [torch.randn((batch, 1, s, s), generator=g,
+                              device=dev).to(bf) for s in (prev, prev, ra, ra)]
+            got = dsra.dsra_level(*ts, (SIZE, SIZE), True, emit)
+            want = dsra.dsra_level_plain(*ts, (SIZE, SIZE), True, emit)
+            over = level_excess(got, want, (SIZE, SIZE), GATE_TOL["bfloat16"])
+            if not over <= 1:
+                raise AssertionError(f"dsra_level on {dev} at {prev} -> {ra}:"
+                                     f" {over:.3g} times the tolerance")
+            worst = max(worst, max((a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(got, want)))
+    return worst
+
+
+def run_replicas(torch, np, state_dict, devices) -> dict:
+    """``BinaryPredictor(devices=devices)`` (``pranet_v2``, bf16, 352, batch
+    16: a chunk a replica) over the synthetic images against the
+    one-device predictor: per forward each replica launches ``stem_pool``
+    once and ``dsra_level`` 3 times, no other kernel; the bf16 masks equal
+    to one device's at the chunk's batch size (the same rows through the
+    same convolutions), and reported beside one device's at batch 16
+    (cuDNN picks its convolutions by batch size, and bf16 rounds their sums
+    apart); the float32 masks of one batch at most one level from one
+    device's at batch 16; a batch's forwards timed (CUDA events on the
+    first card, every card synchronized) beside one device's; each
+    replica's kernels held at its chunk's shapes."""
+    from pranet2_tpu_torch.serve import BinaryPredictor
+
+    images = synthetic_images(np, PAR_SERVE_IMAGES)
+    kw = dict(batch_size=BATCH, testsize=SIZE, dtype=torch.bfloat16)
+    one = BinaryPredictor("pranet_v2", state_dict, device=devices[0], **kw)
+    many = BinaryPredictor("pranet_v2", state_dict, devices=devices, **kw)
+    try:
+        one.warmup()
+        many.warmup()
+        _reset_counts()
+        t0 = time.perf_counter()
+        masks = list(many.stream(images))
+        for d in many.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        forwards = -(-PAR_SERVE_IMAGES // BATCH)
+        want = {k: 0 for k in launches}
+        want.update(stem_pool=len(devices) * forwards,
+                    dsra_level=3 * len(devices) * forwards)
+        if launches != want:
+            raise AssertionError(f"replicas on {devices}: launches "
+                                 f"{launches}, expected {want}")
+        chunk = BinaryPredictor("pranet_v2", state_dict, device=devices[0],
+                                batch_size=BATCH // len(devices),
+                                testsize=SIZE, dtype=torch.bfloat16)
+        same = list(chunk.stream(images))
+        chunk.close()
+        if len(masks) != len(images) or not all(
+                np.array_equal(a, b) for a, b in zip(masks, same)):
+            raise AssertionError(f"replicas on {devices}: bf16 masks differ "
+                                 f"from one device's at the chunk's batch")
+        ref = list(one.stream(images))
+        diffs = [np.abs(a.astype(np.int32) - b.astype(np.int32))
+                 for a, b in zip(masks, ref)]
+        worst = max(int(d.max()) for d in diffs)
+        mean = max(float(d.mean()) for d in diffs)
+        f32 = [BinaryPredictor("pranet_v2", state_dict, batch_size=BATCH,
+                               testsize=SIZE, **where)
+               for where in ({"device": devices[0]}, {"devices": devices})]
+        a, b = (p(images[:BATCH]) for p in f32)
+        for p in f32:
+            p.close()
+        worst_f32 = max(int(np.abs(x.astype(np.int32) - y.astype(np.int32))
+                            .max()) for x, y in zip(a, b))
+        if worst_f32 > 1:
+            raise AssertionError(f"replicas on {devices}: float32 masks "
+                                 f"{worst_f32} levels from one device's")
+        batch = many._preprocess(images[:BATCH])
+        many_ms = time_ms(lambda: _wait(many._launch(batch)), reps=5)
+        one_ms = time_ms(lambda: _wait(one._launch(batch)), reps=5)
+        errs = [_hold_replica_kernels(torch, d, BATCH // len(devices))
+                for d in many.devices]
+    finally:
+        one.close()
+        many.close()
+    return {"model": "replicas_" + "_".join(d.replace(":", "") for d in
+                                            devices),
+            "devices": list(devices), "launches": launches,
+            "forwards": forwards, "equal_at_chunk_batch": True,
+            "bf16_vs_batch16_max_level_diff": worst,
+            "bf16_vs_batch16_worst_image_mean_level_diff": mean,
+            "float32_max_level_diff": worst_f32,
+            "stream_img_per_s": PAR_SERVE_IMAGES / seconds,
+            "batch_ms": many_ms, "one_device_batch_ms": one_ms,
+            "kernel_max_abs_err": max(errs)}
+
+
+def run_reproduce_baseline(torch, np) -> dict:
+    """``cli.reproduce_baseline`` as a process on the card (352, float32,
+    TF32 off): random ``pranet_v2`` weights as a reference ``.pth``
+    (``module.`` keys in a ``state_dict`` container) and as a port ``.pt``
+    (``save_params``) over two synthetic sets of 8 images; both give the
+    same table, 8 PNGs a set at the masks' sizes, ``parity verdict: PASS``
+    at ``--tol_pp 100``, and exit 1 with ``FAIL`` at an unmeetable
+    expectation."""
+    from PIL import Image
+
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.utils.checkpoint import save_params
+
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "TestDataset")
+        for k, ds in enumerate(RB_SETS):
+            write_polyp_set(np, os.path.join(data, ds), RB_IMAGES,
+                            seed=30 + k)
+        sd = get_model("pranet_v2", device="cpu", num_class=1,
+                       generator=torch.Generator().manual_seed(13)
+                       ).state_dict()
+        os.makedirs(os.path.join(root, "pth"))
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+                   os.path.join(root, "pth", "RES-V2.pth"))
+        save_params(os.path.join(root, "pt", "pranet_v2.pt"), sd)
+        expect = os.path.join(root, "expect.json")
+        with open(expect, "w") as f:
+            json.dump({"pranet_v2": {"CVC-300": 50.0}}, f)
+        tables, walls = {}, {}
+        for kind in ("pth", "pt"):
+            out, walls[kind] = _cli(
+                "reproduce_baseline", "--data_root", data, "--ckpt_dir",
+                os.path.join(root, kind), "--models", "pranet_v2",
+                "--datasets", *RB_SETS, "--save_root",
+                os.path.join(root, f"res_{kind}"), "--expect_json", expect,
+                "--tol_pp", "100")
+            tables[kind] = [ln for ln in out.splitlines()
+                            if ln.startswith("pranet_v2 ")]
+            if "parity verdict: PASS" not in out:
+                raise AssertionError(f"reproduce_baseline ({kind}): {out}")
+            for ds in RB_SETS:
+                pngs = sorted(os.listdir(os.path.join(
+                    root, f"res_{kind}", "pranet_v2", ds)))
+                for p in pngs:
+                    a = Image.open(os.path.join(root, f"res_{kind}",
+                                                "pranet_v2", ds, p))
+                    m = Image.open(os.path.join(data, ds, "masks", p))
+                    if a.size != m.size:
+                        raise AssertionError(f"{ds}/{p}: {a.size}, mask "
+                                             f"{m.size}")
+                if len(pngs) != RB_IMAGES:
+                    raise AssertionError(f"{ds}: {len(pngs)} PNGs")
+        # the metric table's rows (model, set, six metrics); the verdict's
+        # rows start with the model's name too
+        rows = [r for r in map(str.split, tables["pth"]) if len(r) == 8]
+        if (tables["pth"] != tables["pt"] or len(rows) != len(RB_SETS)
+                or not all(math.isfinite(float(v)) for r in rows
+                           for v in r[2:8])):
+            raise AssertionError(f"reproduce_baseline tables: {tables}")
+        with open(expect, "w") as f:
+            json.dump({"pranet_v2": {"CVC-300": 99.9}}, f)
+        out, walls["fail"] = _cli(
+            "reproduce_baseline", "--data_root", data, "--ckpt_dir",
+            os.path.join(root, "pt"), "--models", "pranet_v2", "--datasets",
+            *RB_SETS, "--save_root", os.path.join(root, "res_fail"),
+            "--expect_json", expect, "--tol_pp", "0.1", expect_rc=1)
+        if "parity verdict: FAIL" not in out:
+            raise AssertionError(f"reproduce_baseline (FAIL): {out}")
+    return {"table": tables["pth"], "wall_s": walls}
+
+
+def run_parallel(torch, np, dev, card, state_dict) -> tuple[list, dict, dict]:
+    """The parallel phase (see the module's docstring).  Returns the
+    replicas' serving entries, the ranks' and the world-1 step's launch
+    counts by label, and the ``parallel:`` line's record."""
+    n_cards = torch.cuda.device_count()
+    record, runs = {"card": card}, {}
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, ["cuda:0"] * 2)
+    record["ranks_one_card"] = ranks
+    print("parallel ranks: " + json.dumps(ranks))
+    for r in ranks:
+        runs[f"ranks_one_card_r{r['rank']}_f64"] = r["f64_launches"]
+        runs[f"ranks_one_card_r{r['rank']}_f32"] = r["f32"]["launches"]
+    f32 = ranks[0]["f32"]
+    print(f"parallel note: 2 ranks on one card ({ranks[0]['backend']}), "
+          f"float64 step within {ranks[0]['f64']['loss_rel_err']:.3g} of one "
+          f"process; float32 {PAR_F32_SIZE} global batch {PAR_F32_BATCH}: "
+          f"{f32['step_ms']:.1f} ms a step, gradient all-reduce "
+          f"{f32['profiled_allreduce_ms_per_step']:.1f} ms by the profiler "
+          f"({f32['allreduce_alone_ms']:.1f} ms alone) on {card}")
+    record["torchrun_cli"] = run_torchrun_cli(np)
+    print("parallel torchrun: " + json.dumps(record["torchrun_cli"]))
+    record["world1_nccl"] = run_world1_nccl(torch, dev)
+    print("parallel world 1: " + json.dumps(record["world1_nccl"]))
+    runs["world1_nccl_emcad"] = record["world1_nccl"]["launches"]
+    models = [run_replicas(torch, np, state_dict, ["cuda:0"] * 2)]
+    record["replicas_one_card"] = models[0]
+    if n_cards >= 2:
+        record["ranks_two_cards"] = run_ranks(torch, ["cuda:0", "cuda:1"])
+        for r in record["ranks_two_cards"]:
+            runs[f"ranks_two_cards_r{r['rank']}_f64"] = r["f64_launches"]
+            runs[f"ranks_two_cards_r{r['rank']}_f32"] = r["f32"]["launches"]
+        models.append(run_replicas(torch, np, state_dict,
+                                   ["cuda:0", "cuda:1"]))
+        record["replicas_two_cards"] = models[-1]
+    else:
+        record["two_cards"] = "skipped (1 card)"
+        print("parallel note: two cards: skipped (1 card)")
+    record["reproduce_baseline"] = run_reproduce_baseline(torch, np)
+    record["phase_s"] = time.perf_counter() - t0
+    return models, runs, record
+
+
+def _lap(label: str, last: list) -> None:
+    """Print the seconds since ``last[0]`` (a phase's command time) and
+    restart the clock."""
+    now = time.perf_counter()
+    print(f"time: {label} {now - last[0]:.1f} s", flush=True)
+    last[0] = now
+
+
 def main() -> int:
     import torch
 
@@ -2548,6 +3253,7 @@ def main() -> int:
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    clock = [time.perf_counter()]
     print(f"built kernels {_build.sources()} in {_build.build():.1f} s")
     dev = torch.device("cuda")
     # the plain versions' float32 convolutions and products in full float32
@@ -2560,6 +3266,7 @@ def main() -> int:
                check_sra_block(torch, dev), check_pvt_block(torch, dev),
                check_dwconv(torch, dev)]
     print("kernels checked against their plain versions")
+    _lap("build and kernel checks", clock)
 
     from pranet2_tpu_torch import get_model
 
@@ -2578,16 +3285,21 @@ def main() -> int:
               f"{model['stream_img_per_s']:.1f} img/s on {card}")
         print("model: " + json.dumps(model))
         models.append(model)
+    _lap("binary serving paths", clock)
     train_runs = run_training(torch, np, dev, card)
+    _lap("binary training", clock)
     cli = run_cli(torch, np)
     print("cli: " + json.dumps({"card": card, **cli}))
     print("\n".join(cli["benchmark_table"]))
+    _lap("binary CLIs", clock)
 
     models += [serve_volume_path(torch, np, dev, label, card)
                for label in EMCAD_PATHS]
+    _lap("EMCAD volumes", clock)
     train_runs.update(run_multiclass_training(torch, np, dev, card))
     mc_cli = run_multiclass_cli(torch, np)
     print("cli: " + json.dumps({"card": card, **mc_cli}))
+    _lap("multiclass training and CLIs", clock)
 
     # the MaxViT phase: MERIT and MIST served over the volume (Dice only:
     # the EMCAD paths time the full metrics), the rest of the zoo, their
@@ -2596,9 +3308,19 @@ def main() -> int:
                                  full_metrics=False)
                for label in MAXVIT_PATHS]
     models += run_maxvit_forwards(torch, dev, card)
+    _lap("MaxViT volumes and forwards", clock)
     train_runs.update(run_maxvit_training(torch, np, dev, card))
     mv_cli = run_maxvit_cli(torch, np)
     print("cli: " + json.dumps({"card": card, **mv_cli}))
+    _lap("MaxViT training and CLIs", clock)
+
+    # the parallel phase: two ranks and two replicas on the card
+    par_models, par_runs, par = run_parallel(torch, np, dev, card,
+                                             weights["pranet_v2"])
+    models += par_models
+    train_runs.update(par_runs)
+    print("parallel: " + json.dumps(par))
+    _lap("parallel phase", clock)
     for k in kernels:
         by_path = {m["model"]: m["launches"][k["name"]] for m in models}
         by_path.update({label: counts.get(k["name"], 0)

@@ -10,6 +10,13 @@ Snapshots go to ``snapshots/<train_save>/``: ``epoch_<N>.pt`` every
 ``--snapshot_every`` epochs and ``last.pt`` (full train state), and
 ``best.pt`` (the best epoch's weights by summed meanDice, when the eval
 datasets exist).
+
+Data parallel over several cards (or CPU processes), as JAX's mesh:
+
+    torchrun --nproc_per_node 4 -m pranet2_tpu_torch.cli.train_binary ...
+
+``--batchsize`` stays the global batch; rank 0 logs, evaluates and saves.
+Without torchrun it trains on one device.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ def main(argv=None):
                    help="torch device; the CUDA card unless given")
     args = p.parse_args(argv)
 
+    from pranet2_tpu_torch import parallel
     from pranet2_tpu_torch.train.binary import (BinaryTrainConfig,
                                                 test_with_eval, train)
     from pranet2_tpu_torch.utils.checkpoint import save_params, save_state
@@ -67,11 +75,16 @@ def main(argv=None):
 
     has_eval = all(os.path.isdir(os.path.join(cfg.test_root, d))
                    for d in cfg.eval_datasets)
-    state, best, history = train(cfg, eval_fn=eval_fn if has_eval else None)
-    save_state(os.path.join(cfg.save_dir, "last.pt"), state)
-    if best is not None:
-        save_params(os.path.join(cfg.save_dir, "best.pt"), best)
-    print("done; snapshots in", cfg.save_dir)
+    parallel.init_from_env(args.device)
+    try:
+        state, best, _ = train(cfg, eval_fn=eval_fn if has_eval else None)
+        if parallel.is_main():
+            save_state(os.path.join(cfg.save_dir, "last.pt"), state)
+            if best is not None:
+                save_params(os.path.join(cfg.save_dir, "best.pt"), best)
+            print("done; snapshots in", cfg.save_dir)
+    finally:
+        parallel.destroy()
 
 
 if __name__ == "__main__":

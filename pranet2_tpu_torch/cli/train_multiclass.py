@@ -16,6 +16,11 @@ best validated epoch's weights, when one passed the best threshold).
 ``merit`` (``merit_cascaded``), ``merit_parallel`` or ``mist``
 (``mist_cam``), each dual unless ``--no-dual``, as the JAX package builds
 them.
+
+Data parallel over several cards (or CPU processes), as JAX's mesh:
+``torchrun --nproc_per_node 4 -m pranet2_tpu_torch.cli.train_multiclass
+...``; ``--batch_size`` stays the global batch; rank 0 logs, validates and
+saves.  Without torchrun it trains on one device.
 """
 
 from __future__ import annotations
@@ -96,6 +101,18 @@ def main(argv=None):
                         "augmentation still applies per epoch")
     args = p.parse_args(argv)
 
+    from pranet2_tpu_torch import parallel
+
+    parallel.init_from_env(args.device)
+    try:
+        _train(args)
+    finally:
+        parallel.destroy()
+
+
+def _train(args) -> None:
+    from pranet2_tpu_torch import parallel
+
     # dataset defaults (EMCAD/train_synapse.py:85-93, MERIT/train_ACDC.py)
     if args.dataset == "synapse":
         num_classes = args.num_classes or 9
@@ -158,10 +175,11 @@ def main(argv=None):
                   if args.val_split else None)
 
     state, best, _ = train_multiclass(model, cfg, train_ds, val_ds)
-    save_state(os.path.join(args.save_dir, "last.pt"), state)
-    if best is not None:
-        save_params(os.path.join(args.save_dir, "best.pt"), best)
-    print("done; snapshots in", args.save_dir)
+    if parallel.is_main():
+        save_state(os.path.join(args.save_dir, "last.pt"), state)
+        if best is not None:
+            save_params(os.path.join(args.save_dir, "best.pt"), best)
+        print("done; snapshots in", args.save_dir)
 
 
 if __name__ == "__main__":

@@ -4,6 +4,9 @@ from pranet2_tpu_torch.data.polyp import (IMAGENET_MEAN, IMAGENET_STD,
                                           OdgtDataset, PolypDataset,
                                           PolypTestDataset, preprocess_image,
                                           preprocess_mask)
+from pranet2_tpu_torch.data.preprocess import (export_synapse_case,
+                                               preprocess_ct_volume,
+                                               random_split, tif_to_png)
 from pranet2_tpu_torch.data.volumes import (ACDCDataset, RandomGenerator,
                                             RandomGeneratorACDC,
                                             SynapseDataset,
@@ -12,5 +15,6 @@ from pranet2_tpu_torch.data.volumes import (ACDCDataset, RandomGenerator,
 __all__ = ["ACDCDataset", "AugmentedView", "BatchLoader", "CachedDataset",
            "DevicePrefetcher", "IMAGENET_MEAN", "IMAGENET_STD", "OdgtDataset",
            "PolypDataset", "PolypTestDataset", "RandomGenerator",
-           "RandomGeneratorACDC", "SynapseDataset", "preprocess_image",
-           "preprocess_mask", "remap_synapse_labels"]
+           "RandomGeneratorACDC", "SynapseDataset", "export_synapse_case",
+           "preprocess_ct_volume", "preprocess_image", "preprocess_mask",
+           "random_split", "remap_synapse_labels", "tif_to_png"]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from pranet2_tpu_torch.device import resolve
+from pranet2_tpu_torch.parallel import shard_rows
 
 
 class CachedDataset:
@@ -74,15 +75,25 @@ class AugmentedView:
 
 
 class BatchLoader:
-    """Shuffling, batching loader over an indexable dataset of tuples."""
+    """Shuffling, batching loader over an indexable dataset of tuples.
+
+    ``batch_size`` is the global batch.  With ``world > 1`` every rank
+    draws the same seeded order and decodes only its own contiguous rows
+    of each batch (``parallel.shard_rows``), as ``PartitionSpec("data")``
+    splits a batch over a mesh; a batch that does not split evenly raises
+    ``ValueError``.
+    """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 drop_last: bool = True, seed: int = 0, num_threads: int = 8):
+                 drop_last: bool = True, seed: int = 0, num_threads: int = 8,
+                 rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_threads = num_threads
+        self.rank, self.world = rank, world
+        shard_rows(batch_size, rank, world)  # raises if uneven
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -102,6 +113,7 @@ class BatchLoader:
         with ThreadPoolExecutor(self.num_threads) as pool:
             for b in range(n):
                 idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+                idx = idx[shard_rows(len(idx), self.rank, self.world)]
                 items = list(pool.map(fetch, idx))
                 yield tuple(np.stack([it[k] for it in items])
                             for k in range(len(items[0])))

@@ -248,12 +248,13 @@ def _rel_tables(win: int, device: torch.device):
 
 
 class _RelMlp(nn.Module):
-    """fc1 -> ReLU -> dropout 0.125 -> fc2 (timm's ``Mlp`` of RelPosMlp)."""
+    """fc1 -> ReLU -> dropout 0.125 -> fc2 (timm's ``Mlp`` of RelPosMlp).
+    The dropout masks the coordinate table, which has no batch rows."""
 
     def __init__(self, hidden: int, heads: int):
         super().__init__()
         self.fc1 = nn.Linear(2, hidden)
-        self.drop = Dropout(0.125)
+        self.drop = Dropout(0.125, batch=False)
         self.fc2 = nn.Linear(hidden, heads)
 
     def forward(self, x):

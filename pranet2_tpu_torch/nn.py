@@ -47,27 +47,41 @@ class LayerNorm(nn.LayerNorm):
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
-              generator: torch.Generator | None = None) -> torch.Tensor:
+              generator: torch.Generator | None = None,
+              shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Per-sample stochastic depth (timm ``DropPath``, scale_by_keep=True),
     as ``pranet2_tpu/nn.py:82-95``.
 
     Identity at rate 0 or outside training; otherwise zeroes whole samples
     with probability ``rate`` and rescales the others by 1/keep.  The
     draws come from ``generator`` (torch's default generator when None),
-    on the generator's device.
+    on the generator's device, for the global batch (``shard``, ``_drop``).
     """
     if not training or rate == 0.0:
         return x
-    return _drop(x, rate, (x.shape[0],) + (1,) * (x.dim() - 1), generator)
+    return _drop(x, rate, (x.shape[0],) + (1,) * (x.dim() - 1), generator,
+                 shard)
 
 
-def _drop(x, rate: float, shape, generator: torch.Generator | None):
+def _drop(x, rate: float, shape, generator: torch.Generator | None,
+          shard: tuple[int, int] = (0, 1)):
     """``x`` with a mask of ``shape`` (broadcast over x) drawn from
     ``generator`` on its device: kept with probability 1 - rate and scaled
-    by 1/keep, else zeroed."""
+    by 1/keep, else zeroed.
+
+    ``shard = (rank, world)``: dim 0 of ``x`` is the batch and ``x`` holds
+    rows ``[rank*b, (rank+1)*b)`` of a global batch split over ``world``
+    ranks.  The mask is drawn for the global batch (``world * b`` rows)
+    and this rank's rows kept, as JAX draws each mask over the global
+    batch: every world size trains with the same masks.  A tensor with no
+    batch rows keeps ``(0, 1)``: every rank draws the one mask.
+    """
     keep = 1.0 - rate
     dev = x.device if generator is None else generator.device
-    mask = torch.rand(shape, generator=generator, device=dev) < keep
+    rank, world = shard
+    b = shape[0]
+    mask = torch.rand((world * b, *shape[1:]), generator=generator,
+                      device=dev)[rank * b:(rank + 1) * b] < keep
     return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
@@ -81,33 +95,44 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
+        self.shard = (0, 1)
 
     def forward(self, x):
-        return drop_path(x, self.rate, self.training, self.generator)
+        return drop_path(x, self.rate, self.training, self.generator,
+                         self.shard)
 
 
 class Dropout(nn.Module):
     """Element-wise dropout at a fixed rate (flax's ``nn.Dropout``: keep
     each element with probability 1 - rate, scaled by 1/keep), in training
     only, drawing from ``self.generator`` as ``DropPath`` does (``F.dropout``
-    takes no generator).  No parameter or buffer."""
+    takes no generator).  No parameter or buffer.
 
-    def __init__(self, rate: float = 0.0):
+    ``batch=False``: the input has no batch rows (MaxViT's relative
+    position table), so every rank of a group draws the same mask."""
+
+    def __init__(self, rate: float = 0.0, batch: bool = True):
         super().__init__()
         self.rate = rate
+        self.batch = batch
         self.generator: torch.Generator | None = None
+        self.shard = (0, 1)
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        return _drop(x, self.rate, x.shape, self.generator)
+        return _drop(x, self.rate, x.shape, self.generator, self.shard)
 
 
-def drop_path_seeder(model: nn.Module, seed: int):
+def drop_path_seeder(model: nn.Module, seed: int,
+                     shard: tuple[int, int] = (0, 1)):
     """``reseed(step)``: points every ``DropPath`` and ``Dropout`` of
     ``model`` with a rate at one generator on the model's device and seeds
     it from ``seed`` and ``step``, as the JAX package folds its dropout key
-    by the step (a no-op for a model without one)."""
+    by the step (a no-op for a model without one).  ``shard`` is the
+    process group's ``(rank, world)``: each mask over a batch is drawn for
+    the global batch (``_drop``); a ``Dropout(batch=False)`` draws the one
+    mask on every rank."""
     drops = [m for m in model.modules()
              if isinstance(m, (DropPath, Dropout)) and m.rate > 0]
     gen = (torch.Generator(device=next(model.parameters()).device)
@@ -118,6 +143,8 @@ def drop_path_seeder(model: nn.Module, seed: int):
             gen.manual_seed(seed * 2 ** 32 + step)
             for m in drops:
                 m.generator = gen
+                m.shard = (shard if isinstance(m, DropPath) or m.batch
+                           else (0, 1))
 
     return reseed
 

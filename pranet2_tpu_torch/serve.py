@@ -1,10 +1,16 @@
 """Serving API: a fixed-shape batched predictor for PraNet inference.
 
-Port of ``pranet2_tpu/serve.py::BinaryPredictor`` (single device).  Images
-(H x W x 3 uint8, any native size) go in; uint8 masks at each image's native
-size come out, with the reference export's semantics: the sum of the four
-fg maps for a V2 model (``*_v2``), the finest map (``outs[3]``) for a V1
-model.  Partial batches are padded with zeros to the fixed batch size.
+Port of ``pranet2_tpu/serve.py::BinaryPredictor``.  Images (H x W x 3
+uint8, any native size) go in; uint8 masks at each image's native size come
+out, with the reference export's semantics: the sum of the four fg maps for
+a V2 model (``*_v2``), the finest map (``outs[3]``) for a V1 model.
+Partial batches are padded with zeros to the fixed batch size.
+
+Several devices (``devices=[...]``, JAX's ``mesh=``): one replica of the
+model on each, every batch split into equal contiguous chunks, one a
+replica, as ``shard_map`` splits it over the mesh's ``data`` axis.  Every
+op of the eval forward works image by image (BatchNorm on its running
+statistics, the min-max per image), so the split changes no mask.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ class BinaryPredictor:
     def __init__(self, model_name: str, state_dict, batch_size: int = 16,
                  testsize: int = 352, dtype: torch.dtype | None = None,
                  exact_postproc: bool = True, host_workers: int | None = None,
-                 device=None, model_kwargs: dict | None = None):
+                 device=None, model_kwargs: dict | None = None,
+                 devices=None):
         """``state_dict``: the model's weights (a reference checkpoint, or
         ``utils.convert.state_dict_from_jax`` output loaded into a model).
 
@@ -66,17 +73,36 @@ class BinaryPredictor:
 
         ``device``: the GPU unless given (``"cpu"`` for tests).
 
+        ``devices``: serve on several devices instead (JAX's ``mesh``):
+        one replica loaded from ``state_dict`` on each (a device may be
+        listed twice: two replicas on one card), each batch split into
+        ``len(devices)`` equal contiguous chunks, which go out back to
+        back, each to its replica, before any comes back; the masks come
+        out in order.  ``batch_size`` must split evenly over them; giving
+        ``device`` as well raises.
+
         ``model_kwargs``: more keyword arguments for ``get_model``, e.g.
         ``{"fused": True, "tailfuse": True}`` for PraNet-V2 with the fused
         Res2Net blocks.
         """
-        self.device = resolve(device)
+        if device is not None and devices is not None:
+            raise ValueError("give device= or devices=, not both")
+        self.devices = ([resolve(d) for d in devices] if devices is not None
+                        else [resolve(device)])
+        n_dev = len(self.devices)
+        if not n_dev or batch_size % n_dev:
+            raise ValueError(f"batch_size {batch_size} not divisible by the "
+                             f"{n_dev}-device mesh")
+        self.device = self.devices[0]
         self.v2 = is_v2(model_name)
-        self.model = get_model(model_name, device=self.device, dtype=dtype,
-                               **head_kwargs(model_name),
-                               **(model_kwargs or {}))
-        self.model.load_state_dict(state_dict)
-        self.model.eval()
+        self.models = []
+        for dev in self.devices:
+            model = get_model(model_name, device=dev, dtype=dtype,
+                              **head_kwargs(model_name),
+                              **(model_kwargs or {}))
+            model.load_state_dict(state_dict)
+            self.models.append(model.eval())
+        self.model = self.models[0]
         self.batch_size = batch_size
         self.testsize = testsize
         self.exact_postproc = exact_postproc
@@ -92,8 +118,10 @@ class BinaryPredictor:
             self._pool = None
 
     @torch.inference_mode()
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        logits = served_logits(self.model(x), self.v2)
+    def _forward(self, x: torch.Tensor, model=None) -> torch.Tensor:
+        """The served output of ``x`` by ``model`` (the first replica when
+        None)."""
+        logits = served_logits((model or self.model)(x), self.v2)
         if self.exact_postproc:
             return logits.float()
         p = torch.sigmoid(logits.float())
@@ -103,11 +131,14 @@ class BinaryPredictor:
         return (p * 255.0).to(torch.uint8)
 
     def warmup(self):
-        x = torch.zeros((self.batch_size, 3, self.testsize, self.testsize),
-                        device=self.device)
-        self._forward(x)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """One forward of every replica at its chunk's shape."""
+        b = self.batch_size // len(self.devices)
+        for model, dev in zip(self.models, self.devices):
+            self._forward(torch.zeros((b, 3, self.testsize, self.testsize),
+                                      device=dev), model)
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _decode_one(self, im) -> np.ndarray:
         pil = Image.fromarray(np.asarray(im))
@@ -117,7 +148,8 @@ class BinaryPredictor:
         """(B, 3, S, S) float32 batch, in pinned memory when serving a GPU."""
         s = self.testsize
         batch = torch.zeros((self.batch_size, 3, s, s), dtype=torch.float32,
-                            pin_memory=self.device.type == "cuda")
+                            pin_memory=any(d.type == "cuda"
+                                           for d in self.devices))
         arr = batch.numpy()
         decoded = (self._pool.map(self._decode_one, chunk)
                    if self._pool is not None else map(self._decode_one, chunk))
@@ -126,22 +158,30 @@ class BinaryPredictor:
         return batch
 
     def _launch(self, batch: torch.Tensor):
-        """Enqueue one batch: copy in, forward, copy out.  Returns the host
-        tensor and the event that marks it ready (None on the CPU)."""
-        x = batch.to(self.device, non_blocking=True)
-        out = self._forward(x)
-        if self.device.type != "cuda":
-            return out, None
-        host = out.to("cpu", non_blocking=True)  # pinned, asynchronous
-        ready = torch.cuda.Event()
-        ready.record()
-        return host, ready
+        """Enqueue one batch: each replica's chunk copied in, forwarded and
+        copied out, all before any is waited for.  Returns, a chunk each,
+        the host tensors and the events that mark them ready (None on the
+        CPU)."""
+        launched = []
+        chunks = batch.chunk(len(self.devices))
+        for model, dev, chunk in zip(self.models, self.devices, chunks):
+            out = self._forward(chunk.to(dev, non_blocking=True), model)
+            if dev.type != "cuda":
+                launched.append((out, None))
+                continue
+            with torch.cuda.device(dev):
+                host = out.to("cpu", non_blocking=True)  # pinned, async
+                ready = torch.cuda.Event()
+                ready.record()
+            launched.append((host, ready))
+        return launched
 
     def _postprocess(self, launched, chunk):
-        host, ready = launched
-        if ready is not None:
-            ready.synchronize()
-        result = host.numpy()
+        for _, ready in launched:
+            if ready is not None:
+                ready.synchronize()
+        hosts = [host for host, _ in launched]
+        result = (hosts[0] if len(hosts) == 1 else torch.cat(hosts)).numpy()
         for r, im in zip(result[: len(chunk)], chunk):
             h, w = np.asarray(im).shape[:2]
             if self.exact_postproc:

@@ -1,4 +1,5 @@
-"""PraNet-V2 binary training, and PraNet inference loops, on one device.
+"""PraNet-V2 binary training, on one device or data-parallel, and PraNet
+inference loops.
 
 Port of ``pranet2_tpu/train/binary.py``.  The recipe reproduces
 ``binary_seg/MyTrain_med.py``: multi-scale training at rates 0.75, 1 and
@@ -21,6 +22,17 @@ Adam in float32 and runs the forward under ``torch.autocast`` in bf16; the
 losses promote to float32.  Its evaluation serves a bf16 copy of the
 weights (``get_model(..., dtype=torch.bfloat16)``): the kernel wrappers
 take one element type, which autocast's mixed types would break.
+
+Data parallel (a process group, ``parallel.init_from_env``): as JAX's
+mesh, ``cfg.batch_size`` is the global batch, split in contiguous rows
+over the ranks (a batch that does not split raises); each rank decodes its
+own rows, the model is wrapped by ``parallel.data_parallel``
+(synchronized BatchNorm, averaged gradients), the structure losses are
+means over images, so the average of the ranks' losses is the global
+batch's, and drop path draws its masks over the global batch.  Rank 0
+alone logs (the loss averaged over the ranks), saves and evaluates; the
+score goes to every rank, which keep the same ``best``.  Without a group
+nothing is wrapped.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import torch
 from scipy.special import expit
 from torch import nn
 
+from pranet2_tpu_torch import parallel
 from pranet2_tpu_torch.data import (BatchLoader, CachedDataset,
                                     DevicePrefetcher, PolypDataset,
                                     PolypTestDataset)
@@ -113,7 +126,9 @@ def make_train_step(model: nn.Module, *, target_size: int, rescale: bool,
                     compute_dtype: torch.dtype | None = None, seed: int = 0):
     """The train step at one scale: ``step(state, images, gts)`` takes NCHW
     images and masks on the model's device, updates ``state`` in place and
-    returns ``(state, loss, losses)``.
+    returns ``(state, loss, losses)``.  ``model`` is the state's model or
+    its ``parallel.data_parallel`` wrapper; in a process group the images
+    are this rank's rows and the loss is this rank's.
 
     The model's ``DropPath`` modules draw from one generator on its device,
     seeded from ``seed`` and the state's step before each forward, as JAX
@@ -123,7 +138,8 @@ def make_train_step(model: nn.Module, *, target_size: int, rescale: bool,
         raise NotImplementedError(
             "remat is not ported: torch.utils.checkpoint would run each "
             "BatchNorm's running-statistics update twice")
-    reseed = drop_path_seeder(model, seed)
+    reseed = drop_path_seeder(model, seed,
+                              (parallel.rank(), parallel.world()))
 
     def step(state: TrainState, images: torch.Tensor, gts: torch.Tensor):
         if rescale:
@@ -157,10 +173,17 @@ def train(cfg: BinaryTrainConfig, dataset=None, eval_fn=None, log=print):
     The recipe trains PraNet-V2 models only, as the JAX package's (whose
     ``get_model(name, num_class=1)`` refuses a V1 model): a V1 name raises
     ``TypeError`` before any data is read.
+
+    In a process group (see the module's docstring) every rank calls it;
+    ``log``, ``eval_fn`` and the snapshots run on rank 0 only.
     """
     if not is_v2(cfg.model):
         raise TypeError(f"{cfg.model}: the binary recipe trains PraNet-V2 "
                         f"models only (pranet_v2, pvt_pranet_v2)")
+    rank, world = parallel.rank(), parallel.world()
+    parallel.shard_rows(cfg.batch_size, rank, world)  # raises if uneven
+    main = rank == 0
+    log = parallel.main_only(log)
     dev = resolve(cfg.device)
     compute = dtype_of(cfg.dtype)
     dataset = dataset or PolypDataset(
@@ -170,13 +193,15 @@ def train(cfg: BinaryTrainConfig, dataset=None, eval_fn=None, log=print):
         dataset = CachedDataset(dataset)
     model = get_model(cfg.model, device=dev, num_class=1,
                       generator=torch.Generator().manual_seed(cfg.seed))
-    loader = BatchLoader(dataset, cfg.batch_size, seed=cfg.seed)
+    net = parallel.data_parallel(model)
+    loader = BatchLoader(dataset, cfg.batch_size, seed=cfg.seed, rank=rank,
+                         world=world)
     steps_per_epoch = len(loader) * len(cfg.size_rates)
     schedule = step_decay_schedule(cfg.lr, cfg.decay_rate, cfg.decay_epoch,
                                    steps_per_epoch)
     state = TrainState(model, make_optimizer(model.parameters(), schedule,
                                              clip_value=cfg.clip))
-    steps = {rate: make_train_step(model,
+    steps = {rate: make_train_step(net,
                                    target_size=_rate_size(cfg.trainsize, rate),
                                    rescale=rate != 1.0, remat=cfg.remat,
                                    compute_dtype=compute, seed=cfg.seed)
@@ -193,35 +218,39 @@ def train(cfg: BinaryTrainConfig, dataset=None, eval_fn=None, log=print):
             images, gts = _nchw(images), _nchw(gts)
             for rate in cfg.size_rates:
                 state, loss, _ = steps[rate](state, images, gts)
-            n_img += images.shape[0]
+            n_img += images.shape[0] * world
             if i % cfg.log_every == 0:
                 log(f"epoch {epoch} step {i}/{len(loader)} "
-                    f"loss {float(loss):.4f}")
+                    f"loss {float(parallel.all_mean(loss)):.4f}")
         if n_img == 0:
             raise RuntimeError(
                 f"epoch {epoch}: training dataset produced no batches "
                 f"(check train_path / batch_size)")
-        float(loss)  # a device sync: the epoch's time includes its work
+        # a device sync: the epoch's time includes its work
+        loss = float(parallel.all_mean(loss))
         dt = time.time() - t0
-        history.append(dict(epoch=epoch, sec=dt, loss=float(loss),
+        history.append(dict(epoch=epoch, sec=dt, loss=loss,
                             img_per_sec=n_img * len(cfg.size_rates) / dt))
         log(f"epoch {epoch}: {dt:.1f}s ({history[-1]['img_per_sec']:.1f} "
             f"train img/s incl. {len(cfg.size_rates)} scales)")
 
-        if cfg.snapshot_every and epoch % cfg.snapshot_every == 0:
+        if main and cfg.snapshot_every and epoch % cfg.snapshot_every == 0:
             save_state(os.path.join(cfg.save_dir, f"epoch_{epoch}.pt"), state)
             log(f"epoch {epoch}: snapshot saved")
 
         if eval_fn is not None:
-            if compute is None:
-                target = model
-            else:
-                if eval_model is None:
-                    eval_model = get_model(cfg.model, device=dev,
-                                           dtype=compute, num_class=1)
-                eval_model.load_state_dict(state.variables)
-                target = eval_model
-            score = eval_fn(target, state)
+            score = None
+            if main:
+                if compute is None:
+                    target = model
+                else:
+                    if eval_model is None:
+                        eval_model = get_model(cfg.model, device=dev,
+                                               dtype=compute, num_class=1)
+                    eval_model.load_state_dict(state.variables)
+                    target = eval_model
+                score = eval_fn(target, state)
+            score = parallel.broadcast_object(score)
             if score > best_score:
                 best_score = score
                 best = {k: v.detach().clone()

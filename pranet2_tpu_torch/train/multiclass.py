@@ -1,5 +1,5 @@
-"""Multiclass (Synapse/ACDC) training and volumetric inference, on one
-device.
+"""Multiclass (Synapse/ACDC) training, on one device or data-parallel, and
+volumetric inference.
 
 Port of ``pranet2_tpu/train/multiclass.py``.  The recipe reproduces the
 reference trainers (``multiclass_seg/EMCAD/trainer.py:48-200``,
@@ -30,8 +30,19 @@ is the module chain (every kernel is forward only), but for the DSRA
 gates, whose autograd Function runs the gate kernel forward on the card.
 ``dtype="bfloat16"`` trains under ``torch.autocast`` with float32
 parameters (the JAX package's ``--dtype bfloat16`` model) and validates a
-bf16 copy of the weights, as ``train.binary`` does.  One device only:
-JAX's ``mesh`` waits for the port's data-parallel module.
+bf16 copy of the weights, as ``train.binary`` does.
+
+Data parallel (a process group, as ``train.binary``): ``cfg.batch_size``
+is the global batch, split in contiguous rows over the ranks; the model is
+wrapped by ``parallel.data_parallel`` and drop path draws its masks over
+the global batch.  The Dice loss sums over the whole batch, so it is not a
+mean of per-rank terms: every rank gathers the global batch's maps and
+labels (``parallel.gather_rows``, differentiable) and computes the global
+loss, as JAX's step over the mesh does.  Validation and ``test_volumes``
+stay single-device, as in JAX: rank 0 validates and sends the score to
+every rank.  The volume augmenters draw from one stateful RNG per process
+(``data/volumes.py``), so a loop with augmentation trains on other
+samples at another world size; a step on the same batch is the same.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import torch
 from scipy.ndimage import zoom
 from torch import nn
 
+from pranet2_tpu_torch import parallel
 from pranet2_tpu_torch.data import BatchLoader, DevicePrefetcher
 from pranet2_tpu_torch.evalx.volumetric import (calculate_dice_percase,
                                                 calculate_metric_percase)
@@ -188,13 +200,17 @@ def make_multiclass_train_step(model: nn.Module, cfg: MulticlassTrainConfig):
     """``step(state, images, labels) -> (state, loss)``: NCHW images and
     (N, H, W) integer labels on the model's device; one forward in train
     mode, the MUTATION loss, its backward and one optimizer update of
-    ``state`` in place.  Drop path draws from ``cfg.seed`` and the step."""
+    ``state`` in place.  Drop path draws from ``cfg.seed`` and the step.
+    ``model`` is the state's model or its ``parallel.data_parallel``
+    wrapper; in a process group the images and labels are this rank's
+    rows and the loss is the global batch's."""
     if cfg.remat:
         raise NotImplementedError(
             "remat is not ported: torch.utils.checkpoint would run each "
             "BatchNorm's running-statistics update twice")
     compute = dtype_of(cfg.dtype)
-    reseed = drop_path_seeder(model, cfg.seed)
+    reseed = drop_path_seeder(model, cfg.seed,
+                              (parallel.rank(), parallel.world()))
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         model.train()
@@ -203,6 +219,8 @@ def make_multiclass_train_step(model: nn.Module, cfg: MulticlassTrainConfig):
                     if compute is not None else contextlib.nullcontext())
         with autocast:
             outs = model(images)
+        outs = [parallel.gather_rows(o) for o in outs]
+        labels = parallel.gather_rows(labels)
         if cfg.dual:
             loss = mutation_loss(list(outs[:4]), labels, cfg.num_classes,
                                  list(outs[4:]), weights=cfg.loss_weights,
@@ -226,20 +244,25 @@ def train_multiclass(model: nn.Module, cfg: MulticlassTrainConfig,
     ``cfg.max_epochs``.  Returns the final ``TrainState``, the best
     epoch's variables (a detached copy of the model's ``state_dict``; None
     when no validation passed ``best_threshold``) and the per-epoch
-    history."""
+    history.  In a process group every rank calls it; ``log`` and the
+    validation run on rank 0 only."""
+    rank, world = parallel.rank(), parallel.world()
+    main = rank == 0
+    log = parallel.main_only(log)
     dev = next(model.parameters()).device
     compute = dtype_of(cfg.dtype)
+    loader = BatchLoader(train_dataset, cfg.batch_size, seed=cfg.seed,
+                         num_threads=num_threads, rank=rank, world=world)
+    net = parallel.data_parallel(model)
     state = TrainState(model, make_optimizer(
         model.parameters(), cfg.lr, clip_value=None,
         weight_decay=cfg.weight_decay))
-    loader = BatchLoader(train_dataset, cfg.batch_size, seed=cfg.seed,
-                         num_threads=num_threads)
-    step_fn = make_multiclass_train_step(model, cfg)
+    step_fn = make_multiclass_train_step(net, cfg)
     # the kernel wrappers take one element type, which autocast's mixed
     # types would break: a bf16 run validates a bf16 copy of the weights
+    validates = main and val_dataset is not None
     eval_model = (set_compute_dtype(copy.deepcopy(model), compute)
-                  if compute is not None and val_dataset is not None
-                  else model)
+                  if compute is not None and validates else model)
 
     best_dice, best = -1.0, None
     history = []
@@ -259,9 +282,12 @@ def train_multiclass(model: nn.Module, cfg: MulticlassTrainConfig,
             f"({dt:.1f}s)")
 
         if val_dataset is not None and epoch >= eval_from:
-            if eval_model is not model:
-                eval_model.load_state_dict(state.variables)
-            dice = validate(eval_model, val_dataset, cfg)
+            dice = None
+            if validates:
+                if eval_model is not model:
+                    eval_model.load_state_dict(state.variables)
+                dice = validate(eval_model, val_dataset, cfg)
+            dice = parallel.broadcast_object(dice)
             history[-1]["val_dice"] = dice
             log(f"epoch {epoch} val mean-dice {dice:.4f}")
             if dice > best_dice and dice >= cfg.best_threshold:

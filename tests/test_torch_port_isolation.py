@@ -47,6 +47,13 @@ def test_import_pulls_in_no_jax():
             "import pranet2_tpu_torch.models.decoders\n"
             "import pranet2_tpu_torch.models.merit\n"
             "import pranet2_tpu_torch.models.mist\n"
+            "import pranet2_tpu_torch.parallel\n"
+            "import pranet2_tpu_torch.parallel.distributed\n"
+            "import pranet2_tpu_torch.parallel.sync_batchnorm\n"
+            "import pranet2_tpu_torch.parallel.spawn\n"
+            "import pranet2_tpu_torch.data.preprocess\n"
+            "import pranet2_tpu_torch.utils.logging_utils\n"
+            "import pranet2_tpu_torch.cli.reproduce_baseline\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

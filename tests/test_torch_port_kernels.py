@@ -486,6 +486,63 @@ def test_train_step_on_the_card_runs_the_gate_kernel(no_tf32, compute):
                for p in model.parameters())
 
 
+def _replica_masks(devices, batch=4):
+    """Masks and launches of a bf16 ``pranet_v2`` predictor (one block a
+    stage, ``batch`` at 96) on ``devices`` (one device: ``device=``) over 6
+    images."""
+    from pranet2_tpu_torch.serve import BinaryPredictor
+
+    sd = get_model("pranet_v2", device="cpu", num_class=1,
+                   layers=(1, 1, 1, 1)).state_dict()
+    where = ({"device": devices[0]} if len(devices) == 1
+             else {"devices": devices})
+    pred = BinaryPredictor("pranet_v2", sd, batch_size=batch, testsize=96,
+                           dtype=torch.bfloat16, host_workers=0,
+                           model_kwargs={"layers": (1, 1, 1, 1)}, **where)
+    pred.warmup()
+    g = torch.Generator().manual_seed(2)
+    images = [torch.randint(0, 256, (70 + 5 * i, 90, 3), generator=g,
+                            dtype=torch.uint8).numpy() for i in range(6)]
+    counts = (stem.stem_pool, dsra.dsra_level, dsra.dsra_gate)
+    before = [f.launches for f in counts]
+    masks = pred(images)
+    torch.cuda.synchronize()
+    pred.close()
+    return masks, [f.launches - b for f, b in zip(counts, before)]
+
+
+def _assert_equal_masks(got, want):
+    import numpy as np
+
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_two_replicas_on_one_card_launch_the_kernels(cuda):
+    """``devices=["cuda:0"] * 2``: each replica runs its stem kernel once
+    and its 3 decoder levels per batch (two batches of 4: 4 and 12), and
+    the masks are one device's at the chunk's batch of 2 (three batches),
+    bit for bit: the same rows through the same convolutions."""
+    want, n_one = _replica_masks(["cuda:0"], batch=2)
+    got, n_two = _replica_masks(["cuda:0"] * 2)
+    assert n_one == [3, 9, 0] and n_two == [4, 12, 0]
+    _assert_equal_masks(got, want)
+
+
+@pytest.mark.cuda
+def test_two_cards_predictor_launches_on_each(cuda):
+    """``devices=["cuda:0", "cuda:1"]``: a replica on each card, the kernels
+    launched on both, the masks one card's at the chunk's batch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    want, _ = _replica_masks(["cuda:0"], batch=2)
+    got, n_two = _replica_masks(["cuda:0", "cuda:1"])
+    assert n_two == [4, 12, 0]
+    _assert_equal_masks(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,d,nh,tkv", [

@@ -60,3 +60,26 @@ def test_stream_matches_batch_call(weights):
     assert len(streamed) == len(called) == 5
     for a, b in zip(streamed, called):
         np.testing.assert_array_equal(a, b)
+
+
+def test_replicas_match_jax_mesh(weights):
+    """``devices=["cpu"] * 2`` (a replica a device, the batch of 2 split in
+    rows of 1) against JAX's predictor on a 2-device mesh, at most one
+    uint8 level apart."""
+    import jax
+
+    from pranet2_tpu.parallel import make_mesh
+
+    v, sd = weights
+    images = _images(3)
+    port = BinaryPredictor("pranet_v2", sd, batch_size=BATCH,
+                           testsize=TESTSIZE, devices=["cpu"] * 2)
+    want = JaxPredictor("pranet_v2", v, batch_size=BATCH, testsize=TESTSIZE,
+                        mesh=make_mesh(jax.devices()[:2]))(images)
+    got = port(images)
+    port.close()
+    assert len(got) == len(want) == 3
+    for im, g, w in zip(images, got, want):
+        assert g.shape == im.shape[:2]
+        diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+        assert diff.max() <= 1, diff.max()

@@ -215,3 +215,34 @@ def test_params_after_clip_adam_match_jax(jax_side, port_side):
     for k in port_side["grads"]:
         np.testing.assert_array_equal(port_side["after"][k], own[k],
                                       err_msg=k)
+
+
+def test_two_rank_step_matches_jax(jax_side, tmp_path):
+    """The same step data-parallel: 2 gloo ranks of 1 row each
+    (``tests/torch_parallel_ranks.py``; ``SyncBatchNorm``, DDP) against
+    JAX's one-device step on both rows, with this file's tolerances.
+    ``tests/test_parallel.py`` holds JAX's 8-device step equal to its
+    1-device one."""
+    import torch_parallel_ranks as ranks
+
+    x, gts = _batch()
+    model = get_model("pranet_v2", device="cpu", num_class=1).double()
+    sd = load_jax_variables(model, jax_side["variables"]).state_dict()
+    got = ranks.launch(ranks.binary_steps, 2, tmp_path, x, gts, 1, False,
+                       sd)[0]
+    assert got["kind"] == "DistributedDataParallel"
+    (loss,) = got["losses"]
+    assert abs(loss - jax_side["loss"]) <= 1e-9 * abs(jax_side["loss"])
+    grads = got["grads"]
+    assert all(grads[k] is None for k in grads if k.startswith("conv."))
+    with_grads = {k: v if grads.get(k) is None else grads[k].numpy()
+                  for k, v in got["first"].items()}
+    _assert_trees_close(_flax(with_grads, "params"), jax_side["grads"],
+                        atol=1e-8, rtol=1e-6, what="grad")
+    _assert_trees_close(_flax(got["first"], "batch_stats"),
+                        jax_side["stats"], atol=1e-10, rtol=1e-8,
+                        what="batch_stat")
+    own = _port_update(jax_side["variables"], grads)
+    for k in grads:
+        np.testing.assert_array_equal(got["first"][k].numpy(), own[k],
+                                      err_msg=k)
