@@ -56,7 +56,8 @@
    (bf16, 9 classes, random weights from seed 0) over one synthetic
    CT-sized volume (32 slices of 512^2, labels 0-8) through
    ``train.multiclass.test_volumes`` (host zoom to 224, chunks of 16,
-   ``fg_only``), with the launch counters set to 0 just before and read
+   ``fg_only``; the full metrics on PVTv2-b2, Dice alone on ResNet-50
+   since PR 14), with the launch counters set to 0 just before and read
    just after; the forward timed (CUDA events) with its device time by
    kernel, the host's zoom of a chunk and the volume's wall time; its bf16
    logits against float32 (TF32 off) and the card's float32 maps against
@@ -77,13 +78,25 @@
    classes, 6 gates) and the zoo (``maxvit_seg``, ``maxvit4out``,
    ``maxvit_cascade`` at 224^2, no kernel) against float32; then
    ``train_multiclass`` on MERIT-small and MIST (float32, batch 6 at 224,
-   the seeded dropout on, 4 steps, 6 and 3 gates a step; ``train:``
+   the seeded dropout on, 2 steps, 6 and 3 gates a step; ``train:``
    lines); then ``cli.test_multiclass --model mist --dataset acdc`` on a
    reference-style ``.pth`` (packed ``in_proj_weight``, the dead ``conv3``)
    and ``cli.train_multiclass --model merit`` (one epoch), each a process.
    Row 2 is held against its plain version at MERIT's and MIST's gates
    (9 classes at 14/28/56 and 16/32/64 px) in step 2.
-8. The parallel phase (``run_parallel``), on the one card (two ranks or
+8. The remat phase (``run_remat``): the float64 PraNet-V2 step (256 x
+   256, batch 2, clip + Adam) with ``remat`` against the plain step on the
+   card (the loss, gradients and parameters within ``REMAT_TOL``, the
+   BatchNorm buffers bit-equal, beside a second plain step's run-to-run
+   noise); then float32 steps with and without ``remat`` (PraNet-V2 at
+   448 x 448, batch 8; EMCAD-B2 with drop path 0.1 and MERIT-small with
+   its dropout at 224 x 224, batch 6): ms a step (CUDA events), img/s
+   (``utils.profiling.throughput``), peak memory, which must be lower
+   with ``remat``, the parameter count (``utils.profiling.count_params``),
+   the gate launches, and PraNet-V2's device busy time; the gate held
+   against its plain version at each step's shapes.  One ``remat:`` JSON
+   line with the card.
+9. The parallel phase (``run_parallel``), on the one card (two ranks or
    two replicas share it) unless two are present: two spawned ranks
    (gloo, ``parallel.spawn.launch``) take the float64 PraNet-V2 step at
    256 x 256, a row each, against this process's step on both rows (``train_card_vs_cpu``'s
@@ -91,7 +104,7 @@
    352 x 352, global batch 8, timed, with rank 0's profile of the
    gradient all-reduce; each holds the gate kernel at its shapes and
    counts 3 ``dsra_gate`` a step.  ``torchrun --nproc_per_node 2 -m
-   pranet2_tpu_torch.cli.train_binary`` (two short epochs: rank 0's log
+   pranet2_tpu_torch.cli.train_binary`` (one short epoch: rank 0's log
    lines only, one snapshot set).  A world-1 NCCL group: the EMCAD-B2 step
    through ``convert_sync_batchnorm`` and ``data_parallel`` against the
    step without a group, and SyncBatchNorm's Function over NCCL against
@@ -105,9 +118,10 @@
    ``cli.reproduce_baseline`` as a process on a reference ``.pth`` and a
    port ``.pt`` (the table, the PNGs, the PASS verdict, exit 1 on FAIL).
    Prints one ``parallel:`` JSON line (its other lines start otherwise).
-9. Prints one JSON line of kernel results (``launches`` summed over the
-   served paths, the one-forward checks, the training parts and the
-   parallel phase's ranks and replicas, by path in ``launches_by_path``),
+10. Prints one JSON line of kernel results (``launches`` summed over the
+   served paths, the one-forward checks, the training and remat parts and
+   the parallel phase's ranks and replicas, by path in
+   ``launches_by_path``),
    then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside the
@@ -117,6 +131,7 @@ repository, or when any check fails.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -2355,7 +2370,7 @@ def _step_profile(torch, dev, model, cfg, state, gates: int) -> dict:
 MAXVIT_TRAIN = {"merit_cascaded": ("merit_cascaded", {"model_scale": "small"},
                                    6),
                 "mist_cam": ("mist_cam", {}, 3)}
-MAXVIT_TRAIN_EPOCHS = 2
+MAXVIT_TRAIN_EPOCHS = 1   # of 2 batches
 
 
 def train_maxvit(torch, np, dev, label) -> dict:
@@ -2577,8 +2592,8 @@ def run_maxvit_cli(torch, np) -> dict:
 # ---------------------------------------------------------------------------
 
 PAR_F64_SIZE, PAR_F64_BATCH = 256, 2        # train_card_vs_cpu's step
-PAR_F32_SIZE, PAR_F32_BATCH, PAR_F32_STEPS = 352, 8, 4  # global batch
-PAR_PROFILED_STEPS = 2
+PAR_F32_SIZE, PAR_F32_BATCH, PAR_F32_STEPS = 352, 8, 2  # global batch
+PAR_PROFILED_STEPS = 1
 PAR_CLI_TRAIN, PAR_CLI_TEST = 16, 8         # torchrun CLI: images
 PAR_SERVE_IMAGES = 48                       # three batches of 16
 PAR_RANK_TIMEOUT_S = 300                    # each rank's collectives
@@ -2654,15 +2669,17 @@ def _par_compare(ref, got) -> dict:
             "param_max_abs_err": worst_param}
 
 
-def _hold_gates(torch, dev, batch: int, sides, dtype) -> float:
-    """``dsra_gate`` on ``dev`` at a rank's gate shapes (one channel at each
-    side) against ``dsra_gate_plain``; the worst error."""
+def _hold_gates(torch, dev, batch: int, sides, dtype,
+                channels: int = 1) -> float:
+    """``dsra_gate`` on ``dev`` at a step's gate shapes (``channels`` at
+    each side) against ``dsra_gate_plain``; the worst error."""
     from pranet2_tpu_torch.ops import dsra
 
     g = torch.Generator(device=dev).manual_seed(11)
     worst = 0.0
     for s in sides:
-        fg, cf, cb = (torch.randn((batch, 1, s, s), generator=g, device=dev,
+        shape = (batch, channels, s, s)
+        fg, cf, cb = (torch.randn(shape, generator=g, device=dev,
                                   dtype=dtype) for _ in range(3))
         with torch.no_grad():
             got = dsra.dsra_gate(fg, cf, cb, True)
@@ -2674,8 +2691,8 @@ def _hold_gates(torch, dev, batch: int, sides, dtype) -> float:
             tol = GATE_TOL[str(dtype).removeprefix("torch.")]
             ok = (err <= tol + tol * want.double().abs()).all()
         if not bool(ok):
-            raise AssertionError(f"dsra_gate on {dev} at {(batch, 1, s, s)} "
-                                 f"{dtype}: max {err.max().item()}")
+            raise AssertionError(f"dsra_gate on {dev} at {shape} {dtype}: "
+                                 f"max {err.max().item()}")
         worst = max(worst, err.max().item())
     return worst
 
@@ -2821,10 +2838,10 @@ def run_ranks(torch, devices) -> list:
 def run_torchrun_cli(np) -> dict:
     """``torchrun --standalone --nproc_per_node 2 -m
     pranet2_tpu_torch.cli.train_binary`` as a user runs it (float32, 352,
-    global batch 8, 16 training images, two epochs: 12 steps, the in-loop
-    evaluation on 8 more each epoch): exit 0, every log line from rank 0
-    (``--tee 3`` prefixes each with its rank), one snapshot set; ms a step
-    from the second epoch's line."""
+    global batch 8, 16 training images, one epoch: 6 steps, the in-loop
+    evaluation on 8 more): exit 0, every log line from rank 0 (``--tee 3``
+    prefixes each with its rank), one snapshot set; ms a step from the
+    epoch's line (its first steps included)."""
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as root:
         write_polyp_set(np, os.path.join(root, "TrainDataset"),
@@ -2841,7 +2858,7 @@ def run_torchrun_cli(np) -> dict:
                os.path.join(root, "TrainDataset"), "--test_root",
                os.path.join(root, "TestDataset"), "--eval_datasets", "SYN",
                "--batchsize", str(PAR_F32_BATCH), "--trainsize",
-               str(PAR_F32_SIZE), "--epoch", "3", "--snapshot_every", "2",
+               str(PAR_F32_SIZE), "--epoch", "2", "--snapshot_every", "1",
                "--train_save", snap]
         t0 = time.perf_counter()
         r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
@@ -2859,8 +2876,8 @@ def run_torchrun_cli(np) -> dict:
         if m:
             by_rank.setdefault(int(m.group(1)), []).append(m.group(2))
     epochs = [ln for ln in by_rank.get(0, []) if "train img/s" in ln]
-    if (set(by_rank) != {0} or len(epochs) != 2
-            or snaps != ["best.pt", "epoch_2.pt", "last.pt"]
+    if (set(by_rank) != {0} or len(epochs) != 1
+            or snaps != ["best.pt", "epoch_1.pt", "last.pt"]
             or not any("backend gloo" in ln or "backend nccl" in ln
                        for ln in by_rank[0])):
         raise AssertionError(f"torchrun train_binary: lines by rank "
@@ -2868,8 +2885,8 @@ def run_torchrun_cli(np) -> dict:
     img_per_s = float(re.search(r"\(([\d.]+) train img/s", epochs[-1])
                       .group(1))
     return {"wall_s": wall, "lines": by_rank[0], "snapshots": snaps,
-            "epoch2_img_per_s": img_per_s,
-            "epoch2_ms_per_step": PAR_F32_BATCH / img_per_s * 1e3}
+            "epoch1_img_per_s": img_per_s,
+            "epoch1_ms_per_step": PAR_F32_BATCH / img_per_s * 1e3}
 
 
 def _emcad_step(torch, dev, convert: bool) -> dict:
@@ -3220,6 +3237,260 @@ def run_parallel(torch, np, dev, card, state_dict) -> tuple[list, dict, dict]:
     return models, runs, record
 
 
+# ---------------------------------------------------------------------------
+# the remat phase: rematerialised training (the trainers' ``remat``: each
+# backbone block checkpointed) against the plain step
+# ---------------------------------------------------------------------------
+
+REMAT_F64_SIZE, REMAT_F64_BATCH = 256, 2
+REMAT_TOL = 1e-12   # float64 remat vs plain on the card, relative to max
+REMAT_STEPS = 2     # timed steps each way, after a warm-up and a measured one
+# (label, model, keyword arguments, recipe, side, batch, (gate sides,
+# classes), device busy time read): PraNet-V2 at the binary recipe's
+# largest scale, EMCAD-B2 (drop path 0.1) and MERIT-small (its dropout on)
+# at Synapse's; 3 gates a step (MERIT 6)
+REMAT_CELLS = (
+    ("pranet_v2_448", "pranet_v2", {"num_class": 1}, "binary", 448,
+     TRAIN_BATCH, ((14, 28, 56), 1), True),
+    ("emcad_b2", "emcad", {"num_classes": EMCAD_CLASSES,
+                           "encoder": "pvt_v2_b2"}, "multiclass",
+     EMCAD_SIZE, EMCAD_TRAIN_BATCH, (EMCAD_GATE_SIDES, EMCAD_CLASSES),
+     False),
+    ("merit_small", "merit_cascaded", {"num_classes": EMCAD_CLASSES,
+                                       "model_scale": "small"},
+     "multiclass", EMCAD_SIZE, EMCAD_TRAIN_BATCH,
+     (MAXVIT_GATE_SIDES + EMCAD_GATE_SIDES, EMCAD_CLASSES), False),
+)
+
+
+class _GradSpy:
+    """Keeps the gradients ``state.apply_gradients`` is given (it clears
+    them)."""
+
+    def __init__(self, state):
+        self.grads = {}
+        apply = state.apply_gradients
+
+        def spy():
+            self.grads = _grads(state.model)
+            apply()
+
+        state.apply_gradients = spy
+
+
+def _remat_f64(torch, dev) -> dict:
+    """The float64 PraNet-V2 step (full width and depth, batch 2 at 256,
+    clip + Adam through ``make_train_step``) on the card, plain, with
+    ``remat`` and plain again, from the same weights and batch.  Held
+    against the first plain step within ``REMAT_TOL``: the loss, every
+    gradient (relative to the tensor's largest |value|) and the parameters
+    after the update (relative to the model's largest |parameter|: Adam's
+    g / (|g| + 1e-8) turns float64 noise in a gradient near 1e-8 into
+    update noise up to 1e4 times larger, which a zero-initialised bias,
+    whose largest value is one update, cannot absorb); the BatchNorm
+    statistics and ``num_batches_tracked`` bit-equal, each counter one on
+    from the weights' (the grayscale stem's, which an RGB batch does not
+    reach, unmoved); 3 ``dsra_gate`` launches each.  The second plain
+    step measures the card's own run-to-run noise (the resizes' atomic
+    backward), beside which the remat step's difference is read."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.train import TrainState, make_optimizer
+    from pranet2_tpu_torch.train.binary import make_train_step
+
+    start = get_model("pranet_v2", device="cpu", num_class=1,
+                      generator=torch.Generator().manual_seed(5)
+                      ).double().state_dict()
+    g = torch.Generator().manual_seed(6)
+    side, n = REMAT_F64_SIZE, REMAT_F64_BATCH
+    x = torch.randn((n, 3, side, side), generator=g, dtype=torch.float64)
+    gts = (torch.rand((n, 1, side, side), generator=g) > 0.6).double()
+    x, gts = x.to(dev), gts.to(dev)
+    runs = {}
+    for mode in ("plain", "remat", "plain_again"):
+        model = get_model("pranet_v2", device=dev, num_class=1).double()
+        model.load_state_dict(start)
+        state = TrainState(model, make_optimizer(model.parameters(), 1e-4,
+                                                 clip_value=0.5))
+        spy = _GradSpy(state)
+        step = make_train_step(model, target_size=side, rescale=False,
+                               remat=mode == "remat")
+        _reset_counts()
+        _, loss, _ = step(state, x, gts)
+        torch.cuda.synchronize()
+        runs[mode] = {"loss": loss.item(), "grads": spy.grads,
+                      "after": {k: v.clone() for k, v in
+                                model.state_dict().items()},
+                      "launches": _launch_counts()}
+    plain = runs["plain"]
+    params = [k for k, v in plain["after"].items()
+              if v.is_floating_point() and "running" not in k]
+    scale = max(plain["after"][k].abs().max().item() for k in params)
+    stats = [k for k in plain["after"] if k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))]
+
+    def rel(a, b):
+        top = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        return err / top if top else (0.0 if err == 0 else math.inf)
+
+    def against_plain(r) -> dict:
+        if any((w is None) != (r["grads"][k] is None)
+               for k, w in plain["grads"].items()):
+            raise AssertionError("remat f64: a gradient on one side only")
+        return {
+            "loss": abs(r["loss"] - plain["loss"]) / abs(plain["loss"]),
+            "grads": max(rel(r["grads"][k], w) for k, w in
+                         plain["grads"].items() if w is not None),
+            "params": max((r["after"][k] - plain["after"][k]).abs().max()
+                          .item() for k in params) / scale,
+            "params_per_tensor": max(rel(r["after"][k], plain["after"][k])
+                                     for k in params),
+            "bn_buffers_unequal": [k for k in stats if not torch.equal(
+                r["after"][k], plain["after"][k])]}
+
+    remat, noise = against_plain(runs["remat"]), against_plain(
+        runs["plain_again"])
+    moved = {k: int(runs["remat"]["after"][k]) - int(start[k])
+             for k in stats if k.endswith("num_batches_tracked")}
+    if moved.pop("conv.1.num_batches_tracked") != 0 or set(
+            moved.values()) != {1}:
+        raise AssertionError(f"remat f64: num_batches_tracked moved by "
+                             f"{sorted(set(moved.values()))}")
+    if remat["bn_buffers_unequal"]:
+        raise AssertionError("remat f64: BatchNorm buffers differ from the "
+                             "plain step's: "
+                             f"{remat['bn_buffers_unequal'][:5]}")
+    if max(remat["loss"], remat["grads"], remat["params"]) > REMAT_TOL:
+        raise AssertionError(f"remat f64: {remat} from the plain step "
+                             f"(tolerance {REMAT_TOL}; plain again: {noise})")
+    for r in runs.values():
+        if r["launches"] != {**_NONE, "dsra_gate": 3}:
+            raise AssertionError(f"remat f64: launches {r['launches']}")
+    return {"phase": "remat_f64", "size": side, "batch": n,
+            "loss": plain["loss"], "remat_vs_plain": remat,
+            "plain_vs_plain": noise, "bn_buffers_equal": len(stats),
+            "gate_err": _hold_gates(torch, dev, n,
+                                    (side // 32, side // 16, side // 8),
+                                    torch.float64),
+            "launches": {m: r["launches"] for m, r in runs.items()}}
+
+
+def _remat_cell(torch, dev, cell) -> tuple[dict, dict]:
+    """One ``REMAT_CELLS`` row in float32 (PyTorch's default flags):
+    the same model and optimizer state, plain then with ``remat``: a
+    warm-up step, one step for the peak memory (``max_memory_allocated``
+    after ``reset_peak_memory_stats``), ``REMAT_STEPS`` timed by CUDA
+    events and ``REMAT_STEPS`` through ``profiling.throughput``; the
+    launches of all of them; where the cell says so, then the step's
+    device busy time (``device_time``).  Returns the cell's record and its
+    launch counts by mode."""
+    from pranet2_tpu_torch import get_model
+    from pranet2_tpu_torch.train import TrainState, make_optimizer
+    from pranet2_tpu_torch.train import multiclass as mc
+    from pranet2_tpu_torch.train.binary import make_train_step
+    from pranet2_tpu_torch.utils import profiling
+
+    label, name, kwargs, recipe, side, n, (sides, channels), busy = cell
+    g = torch.Generator(device=dev).manual_seed(9)
+    model = get_model(name, device=dev, **kwargs,
+                      generator=torch.Generator().manual_seed(9))
+    if recipe == "binary":
+        state = TrainState(model, make_optimizer(model.parameters(), 1e-4,
+                                                 clip_value=0.5))
+        x = torch.randn((n, 3, side, side), generator=g, device=dev)
+        y = (torch.rand((n, 1, side, side), generator=g, device=dev)
+             > 0.5).float()
+        steps = {remat: make_train_step(model, target_size=side,
+                                        rescale=False, remat=remat)
+                 for remat in (False, True)}
+    else:
+        cfg = mc.MulticlassTrainConfig(num_classes=EMCAD_CLASSES,
+                                       batch_size=n, img_size=side)
+        state = TrainState(model, make_optimizer(
+            model.parameters(), cfg.lr, clip_value=None,
+            weight_decay=cfg.weight_decay))
+        x = torch.randn((n, 1, side, side), generator=g, device=dev)
+        y = torch.randint(0, EMCAD_CLASSES, (n, side, side), generator=g,
+                          device=dev)
+        steps = {remat: mc.make_multiclass_train_step(
+            model, dataclasses.replace(cfg, remat=remat))
+            for remat in (False, True)}
+    gates = len(sides)
+    record = {"cell": label, "model": name, "kwargs": kwargs,
+              "dtype": "float32", "side": side, "batch": n,
+              "params": profiling.count_params(model)}
+    counts = {}
+    for remat, step in steps.items():
+        mode = "remat" if remat else "plain"
+        run = lambda: step(state, x, y)
+        _reset_counts()
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = []
+        for _ in range(REMAT_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        img_s = profiling.throughput(run, (), n, iters=REMAT_STEPS,
+                                     warmup=0)
+        launches = _launch_counts()
+        loss = out[1].item()
+        want = {**_NONE, "dsra_gate": gates * (2 + 2 * REMAT_STEPS)}
+        if launches != want or not math.isfinite(loss):
+            raise AssertionError(f"remat {label} {mode}: launches "
+                                 f"{launches}, loss {loss}")
+        counts[mode] = launches
+        record[mode] = {"peak_mem_gb": peak / 1e9, "ms_per_step": ms,
+                        "ms": statistics.median(ms),
+                        "train_img_per_s": img_s, "loss": loss,
+                        "dsra_gate_launches": launches["dsra_gate"]}
+        if busy:
+            trace = device_time(torch, run, forwards=2)
+            record[mode].update(busy_ms=trace["busy_ms"],
+                                top=trace["top"][:6])
+    plain, remat = record["plain"], record["remat"]
+    if not remat["peak_mem_gb"] < plain["peak_mem_gb"]:
+        raise AssertionError(f"remat {label}: peak {remat['peak_mem_gb']:.3f}"
+                             f" GB, plain {plain['peak_mem_gb']:.3f} GB")
+    record["peak_ratio"] = remat["peak_mem_gb"] / plain["peak_mem_gb"]
+    record["time_ratio"] = remat["ms"] / plain["ms"]
+    record["gate_err"] = _hold_gates(torch, dev, n, sides, torch.float32,
+                                     channels)
+    return record, counts
+
+
+def run_remat(torch, dev, card) -> dict:
+    """The remat phase (``_remat_f64``, then ``_remat_cell`` on each of
+    ``REMAT_CELLS``); prints one ``remat:`` JSON line with the card and
+    returns the launch counts of each run."""
+    t0 = time.perf_counter()
+    f64 = _remat_f64(torch, dev)
+    cells, runs = [], {f"remat_f64_{m}": c
+                       for m, c in f64["launches"].items()}
+    for cell in REMAT_CELLS:
+        record, counts = _user_flags(torch, lambda: _remat_cell(torch, dev,
+                                                               cell))
+        cells.append(record)
+        runs.update({f"remat_{record['cell']}_{m}": c
+                     for m, c in counts.items()})
+        print(f"remat {record['cell']} f32 {record['side']} batch "
+              f"{record['batch']}: peak {record['plain']['peak_mem_gb']:.2f}"
+              f" -> {record['remat']['peak_mem_gb']:.2f} GB, "
+              f"{record['plain']['ms']:.1f} -> {record['remat']['ms']:.1f} "
+              f"ms a step on {card}")
+    print("remat: " + json.dumps({"card": card, "f64": f64, "cells": cells,
+                                  "phase_s": time.perf_counter() - t0}))
+    return runs
+
+
 def _lap(label: str, last: list) -> None:
     """Print the seconds since ``last[0]`` (a phase's command time) and
     restart the clock."""
@@ -3293,7 +3564,10 @@ def main() -> int:
     print("\n".join(cli["benchmark_table"]))
     _lap("binary CLIs", clock)
 
-    models += [serve_volume_path(torch, np, dev, label, card)
+    # the full metrics (HD95, Jaccard, ASD) on the first path; Dice alone
+    # on the second, whose forward is what it adds
+    models += [serve_volume_path(torch, np, dev, label, card,
+                                 full_metrics=label == EMCAD_PATHS[0])
                for label in EMCAD_PATHS]
     _lap("EMCAD volumes", clock)
     train_runs.update(run_multiclass_training(torch, np, dev, card))
@@ -3313,6 +3587,10 @@ def main() -> int:
     mv_cli = run_maxvit_cli(torch, np)
     print("cli: " + json.dumps({"card": card, **mv_cli}))
     _lap("MaxViT training and CLIs", clock)
+
+    # the remat phase: checkpointed training against the plain step
+    train_runs.update(run_remat(torch, dev, card))
+    _lap("remat phase", clock)
 
     # the parallel phase: two ranks and two replicas on the card
     par_models, par_runs, par = run_parallel(torch, np, dev, card,

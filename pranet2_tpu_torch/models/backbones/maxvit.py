@@ -34,6 +34,12 @@ then window attention, then grid attention.
   another side raises.
 * A final LayerNorm over C on the last stage only; returns the four stage
   features, finest first.
+* Under the trainers' ``remat`` (``nn.remat``) each block runs through
+  ``nn.checkpointed`` (``block(x, window)``, the window a plain argument):
+  the same values, its activations rebuilt in the backward, its
+  dropout's mask drawn again as in the forward.  The cached coordinates
+  are constants built outside inference mode, so a recompute reads the
+  same tensors.
 
 GELU is exact erf (flax ``approximate=False``, torch's default), LayerNorms
 are the port's ``nn.LayerNorm`` (flax's arithmetic), BatchNorms torch's.
@@ -52,7 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pranet2_tpu_torch.nn import DropPath, Dropout, LayerNorm
+from pranet2_tpu_torch.nn import DropPath, Dropout, LayerNorm, checkpointed
 
 DIM_HEAD = 32
 
@@ -479,7 +485,7 @@ class MaxxVit(nn.Module):
         feats = []
         for stage in self.stages:
             for block in stage.blocks:
-                x = block(x, window)
+                x = checkpointed(block, x, window)
             feats.append(x)
         feats[-1] = self.norm(feats[-1])
         return tuple(feats)

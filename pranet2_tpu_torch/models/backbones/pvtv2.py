@@ -56,6 +56,9 @@ Stochastic depth: each block drops its attention and its MLP branch per
 sample at its rate, a linear ramp from 0 at the first block to
 ``drop_path_rate`` (0.1, ``pvtv2.py:424,469``) at the last, in training
 only (``nn.DropPath``; the module chain is the only route that trains).
+Under the trainers' ``remat`` (``nn.remat``) the chain checkpoints each
+block (``nn.checkpointed``): the same values, the block's activations
+rebuilt in the backward.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pranet2_tpu_torch.nn import DropPath, LayerNorm
+from pranet2_tpu_torch.nn import DropPath, LayerNorm, checkpointed
 from pranet2_tpu_torch.ops.pvt_attn import sra_attention, sra_block
 from pranet2_tpu_torch.ops.pvt_block import pvt_block
 from pranet2_tpu_torch.ops.pvt_mlp import ln_stats, mlp_block
@@ -294,7 +297,8 @@ class PVTv2(nn.Module):
                                 self.blockfuse, SR_RATIOS[s - 1])
             if route in ("chain", "block"):
                 for blk in blocks:
-                    x = blk(x) if route == "chain" else blk.forward_block(x)
+                    x = (checkpointed(blk, x) if route == "chain"
+                         else blk.forward_block(x))
                 x = norm(x)
             else:
                 stats = None

@@ -33,6 +33,10 @@ branches are TPU restructures of the same arithmetic and are left out.
 * Downsample shortcut: stride x stride avg-pool (ceil mode,
   ``count_include_pad=False``), then 1x1 conv + BN.
 
+Under the trainers' ``remat`` (``nn.remat``) the forward runs each block of
+``layer1..4`` through ``nn.checkpointed``: the same values, its activations
+rebuilt in the backward.  The Sequentials stay, so the names do.
+
 Every kernel is forward only, so each kernel site takes its module chain
 whenever ``self.training or torch.is_grad_enabled()``: an eval forward
 with autograd on (fine-tuning with frozen BatchNorm, saliency maps) gets
@@ -47,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pranet2_tpu_torch.nn import checkpointed
 from pranet2_tpu_torch.ops import avg_pool, res2_block, res2_tail, stem_pool
 
 
@@ -187,9 +192,24 @@ class Res2Net(nn.Module):
                          bn.running_var, bn.eps)
 
     def forward(self, x):
+        """(x1, x2, x3, x4); under ``nn.remat`` in training each block is
+        ``checkpointed`` (the same values, less memory)."""
         x = self.stem_tail(self.conv1(x))
-        x1 = self.layer1(x)
-        x2 = self.layer2(x1)
-        x3 = self.layer3(x2)
-        x4 = self.layer4(x3)
-        return x1, x2, x3, x4
+        feats = []
+        for li in range(1, 5):
+            for block in getattr(self, f"layer{li}"):
+                x = checkpointed(block, x)
+            feats.append(x)
+        return tuple(feats)
+
+
+def res2net50_v1b(**kw) -> Res2Net:
+    """Res2Net-50-v1b (layers 3, 4, 6, 3), PraNet's encoder; ``kw`` are
+    ``Res2Net``'s kernel options (``fused``, ``tailfuse``)."""
+    return Res2Net(layers=(3, 4, 6, 3), **kw)
+
+
+def res2net101_v1b(**kw) -> Res2Net:
+    """Res2Net-101-v1b (layers 3, 4, 23, 3), as JAX's
+    ``res2net101_v1b``; no model of either package builds it."""
+    return Res2Net(layers=(3, 4, 23, 3), **kw)

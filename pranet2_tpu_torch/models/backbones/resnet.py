@@ -17,6 +17,9 @@ or reference ``.pth`` loads with ``load_state_dict``.
   Bottleneck (resnet50/101/152): 1x1, 3x3 (with the stride), 1x1 to
   4x planes.  The first block of a stage whose stride or width changes
   has a ``downsample`` shortcut of a strided 1x1 conv and a BatchNorm.
+* Under the trainers' ``remat`` (``nn.remat``) each block runs through
+  ``nn.checkpointed``: the same values, its activations rebuilt in the
+  backward.  The ``layerL`` Sequentials stay, so the names do.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pranet2_tpu_torch.nn import checkpointed
 from pranet2_tpu_torch.ops import stem_pool
 
 # variant -> (block kind, blocks per stage)
@@ -113,12 +117,15 @@ class ResNet(nn.Module):
                          bn.running_var, bn.eps)
 
     def forward(self, x):
+        """(x1, x2, x3, x4); under ``nn.remat`` in training each block is
+        ``checkpointed`` (the same values, less memory)."""
         x = self.stem_tail(self.conv1(x))
-        x1 = self.layer1(x)
-        x2 = self.layer2(x1)
-        x3 = self.layer3(x2)
-        x4 = self.layer4(x3)
-        return x1, x2, x3, x4
+        feats = []
+        for li in range(1, 5):
+            for block in getattr(self, f"layer{li}"):
+                x = checkpointed(block, x)
+            feats.append(x)
+        return tuple(feats)
 
 
 def resnet(variant: str = "resnet50") -> ResNet:

@@ -14,6 +14,11 @@ GELU: MaxViT and MIST use flax's exact-erf ``nn.gelu(approximate=False)``,
 which is torch's default ``nn.GELU()``; EMCAD's "gelu" is the tanh
 approximation (``models/emcad.py::act_layer``).
 
+Rematerialisation (the trainers' ``remat``): ``remat`` switches it on,
+``checkpointed`` runs one backbone block through
+``torch.utils.checkpoint`` and ``keep_batchnorm_stats`` keeps the running
+statistics as one forward left them.
+
 Reduced precision: ``set_compute_dtype`` casts the convolutions and Linears
 and keeps every BatchNorm and LayerNorm in float32, as the JAX package keeps
 its parameters and statistics in float32 while computing in bfloat16.
@@ -21,10 +26,13 @@ its parameters and statistics in float32 while computing in bfloat16.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pranet2_tpu_torch.ops import resize_bilinear
 
@@ -147,6 +155,102 @@ def drop_path_seeder(model: nn.Module, seed: int,
                            else (0, 1))
 
     return reseed
+
+
+_REMAT = contextvars.ContextVar("remat", default=False)
+
+
+@contextlib.contextmanager
+def remat(on: bool = True):
+    """Within it, ``checkpointed`` blocks of a model in training with
+    autograd on keep only their inputs and are run again in the backward
+    (memory for FLOPs): the trainers' ``remat``.  JAX checkpoints the whole
+    forward (``jax.checkpoint``); an eager checkpoint of the whole forward
+    would rebuild every activation at once before the backward and save
+    nothing at the peak, so the port checkpoints each backbone block.  The
+    values are the same: the recompute draws the forward's masks
+    (``checkpointed``) and the step keeps one forward's BatchNorm update
+    (``keep_batchnorm_stats``)."""
+    token = _REMAT.set(on)
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
+
+
+def _mask_generators(block: nn.Module) -> list:
+    """The distinct generators the ``DropPath`` and ``Dropout`` modules of
+    ``block`` draw from (``drop_path_seeder``'s); torch's default
+    generators, which a module without one draws from, are ``checkpoint``'s
+    own to replay."""
+    gens = {}
+    for m in block.modules():
+        if (isinstance(m, (DropPath, Dropout)) and m.rate > 0
+                and m.generator is not None):
+            gens[id(m.generator)] = m.generator
+    return list(gens.values())
+
+
+def _replay_masks(gens: list):
+    """``checkpoint``'s ``context_fn``: the generators' states at the
+    block's forward entry, set again for its recompute (which would
+    otherwise draw other masks and give wrong gradients without an
+    error) and put back as they were after it, also when the recompute
+    stops early (non-reentrant checkpoint stops it by raising)."""
+    states = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, states):
+            g.set_state(s)
+        try:
+            yield
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    return contextlib.nullcontext(), recompute()
+
+
+def checkpointed(block: nn.Module, *args):
+    """``block(*args)``, checkpointed under ``remat`` when ``block`` is in
+    training and autograd records; a plain call otherwise.
+
+    Non-reentrant checkpoint: the reentrant form gives no parameter
+    gradients to a block whose input does not require grad (the first
+    block after the stem) and breaks DDP's hooks.  It takes non-tensor
+    arguments (MaxViT's window) and replays autocast and torch's default
+    generators itself; the drop modules' generator is replayed by
+    ``_replay_masks``.  The recompute updates each BatchNorm's running
+    statistics a second time: the step undoes that with
+    ``keep_batchnorm_stats``."""
+    if not (_REMAT.get() and block.training and torch.is_grad_enabled()):
+        return block(*args)
+    gens = _mask_generators(block)
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=lambda: _replay_masks(gens))
+
+
+@contextlib.contextmanager
+def keep_batchnorm_stats(model: nn.Module, on: bool = True):
+    """Around a backward: the running statistics and
+    ``num_batches_tracked`` of every BatchNorm of ``model`` (the port's
+    ``SyncBatchNorm`` too) copied on entry and put back on exit, so that a
+    rematerialised step leaves them as its one forward did (``on``;
+    nothing is copied otherwise).  The copy back runs after the whole
+    backward, when no saved tensor of it is read any more."""
+    saved = ([(b, b.clone()) for m in model.modules()
+              if isinstance(m, nn.modules.batchnorm._BatchNorm)
+              for b in (m.running_mean, m.running_var,
+                        m.num_batches_tracked) if b is not None]
+             if on else [])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, copy in saved:
+                b.copy_(copy)
 
 
 class ConvBN(nn.Module):

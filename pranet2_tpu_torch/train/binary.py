@@ -58,7 +58,8 @@ from pranet2_tpu_torch.evalx import (aggregate_dataset_metrics,
 from pranet2_tpu_torch.losses import structure_loss
 from pranet2_tpu_torch.losses.binary import _boundary_weight
 from pranet2_tpu_torch.models import get_model
-from pranet2_tpu_torch.nn import drop_path_seeder
+from pranet2_tpu_torch.nn import (drop_path_seeder, keep_batchnorm_stats,
+                                  remat as remat_scope)
 from pranet2_tpu_torch.ops import resize_bilinear, resize_bilinear_np
 from pranet2_tpu_torch.serve import is_v2, served_logits
 from pranet2_tpu_torch.train.optim import make_optimizer, step_decay_schedule
@@ -87,7 +88,7 @@ class BinaryTrainConfig:
     snapshot_every: int = 10
     log_every: int = 20
     dtype: str = "float32"             # 'bfloat16' for bf16 compute
-    remat: bool = False                # not ported: raises when set
+    remat: bool = False                # memory<->FLOPs: checkpointed blocks
     cache_dataset: bool = True         # preload+RAM-cache the (small) train set
     device: str | None = None          # the card unless given ('cpu')
 
@@ -133,11 +134,16 @@ def make_train_step(model: nn.Module, *, target_size: int, rescale: bool,
     The model's ``DropPath`` modules draw from one generator on its device,
     seeded from ``seed`` and the state's step before each forward, as JAX
     folds its dropout key by the step.
+
+    ``remat``: JAX's ``jax.checkpoint`` of the forward.  Here the backbone
+    checkpoints each block (``nn.remat``, ``nn.checkpointed``), which
+    computes the same values and is what saves memory in eager mode (a
+    checkpoint of the whole forward would rebuild every activation before
+    the backward); the decoder keeps its activations.  The loss, the
+    gradients, the update and the BatchNorm statistics are the plain
+    step's (``nn.keep_batchnorm_stats``); a second forward through the
+    backbone's blocks is the cost.
     """
-    if remat:
-        raise NotImplementedError(
-            "remat is not ported: torch.utils.checkpoint would run each "
-            "BatchNorm's running-statistics update twice")
     reseed = drop_path_seeder(model, seed,
                               (parallel.rank(), parallel.world()))
 
@@ -148,9 +154,11 @@ def make_train_step(model: nn.Module, *, target_size: int, rescale: bool,
             gts = resize_bilinear(gts, size, align_corners=True)
         model.train()
         reseed(state.step)  # the steps of other scales share the modules
-        loss, losses = train_loss(model, images, gts, compute_dtype)
+        with remat_scope(remat):
+            loss, losses = train_loss(model, images, gts, compute_dtype)
         state.optimizer.zero_grad()
-        loss.backward()
+        with keep_batchnorm_stats(model, remat):
+            loss.backward()
         state.apply_gradients()
         return state, loss.detach(), torch.stack(losses).detach()
 

@@ -62,7 +62,8 @@ from pranet2_tpu_torch.data import BatchLoader, DevicePrefetcher
 from pranet2_tpu_torch.evalx.volumetric import (calculate_dice_percase,
                                                 calculate_metric_percase)
 from pranet2_tpu_torch.losses import mutation_loss
-from pranet2_tpu_torch.nn import drop_path_seeder, set_compute_dtype
+from pranet2_tpu_torch.nn import (drop_path_seeder, keep_batchnorm_stats,
+                                  remat as remat_scope, set_compute_dtype)
 from pranet2_tpu_torch.train.binary import dtype_of
 from pranet2_tpu_torch.train.optim import make_optimizer
 from pranet2_tpu_torch.train.state import TrainState
@@ -191,7 +192,7 @@ class MulticlassTrainConfig:
     seed: int = 2222
     eval_from_frac: float = 0.5     # start validating at this fraction of epochs
     best_threshold: float = 0.80    # min val mean-dice to save best
-    remat: bool = False             # not ported: raises when set
+    remat: bool = False             # rematerialize the forward
     supervision: str = "mutation"   # 'mutation' | 'deep_supervision' | 'last_layer'
     dtype: str = "float32"          # 'bfloat16': autocast, float32 parameters
 
@@ -203,11 +204,9 @@ def make_multiclass_train_step(model: nn.Module, cfg: MulticlassTrainConfig):
     ``state`` in place.  Drop path draws from ``cfg.seed`` and the step.
     ``model`` is the state's model or its ``parallel.data_parallel``
     wrapper; in a process group the images and labels are this rank's
-    rows and the loss is the global batch's."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not ported: torch.utils.checkpoint would run each "
-            "BatchNorm's running-statistics update twice")
+    rows and the loss is the global batch's.  ``cfg.remat`` checkpoints
+    each encoder block, as ``train.binary.make_train_step`` does: the
+    plain step's values, less memory, a second encoder forward."""
     compute = dtype_of(cfg.dtype)
     reseed = drop_path_seeder(model, cfg.seed,
                               (parallel.rank(), parallel.world()))
@@ -217,7 +216,7 @@ def make_multiclass_train_step(model: nn.Module, cfg: MulticlassTrainConfig):
         reseed(state.step)
         autocast = (torch.autocast(images.device.type, dtype=compute)
                     if compute is not None else contextlib.nullcontext())
-        with autocast:
+        with autocast, remat_scope(cfg.remat):
             outs = model(images)
         outs = [parallel.gather_rows(o) for o in outs]
         labels = parallel.gather_rows(labels)
@@ -230,7 +229,8 @@ def make_multiclass_train_step(model: nn.Module, cfg: MulticlassTrainConfig):
                                  single_weights=cfg.single_weights,
                                  supervision=cfg.supervision)
         state.optimizer.zero_grad()
-        loss.backward()
+        with keep_batchnorm_stats(model, cfg.remat):
+            loss.backward()
         state.apply_gradients()
         return state, loss.detach()
 

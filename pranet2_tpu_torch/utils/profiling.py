@@ -1,5 +1,5 @@
-"""Profiling and cost analysis for the port: the parts of
-``pranet2_tpu/utils/profiling.py`` that ``cli/benchmark.py`` uses.
+"""Profiling and cost analysis for the port, after
+``pranet2_tpu/utils/profiling.py``.
 
 * ``device_peak_tflops``: the card's name and its dense bf16 peak in
   TFLOP/s from the maker's data sheet, for MFU bookkeeping (None for a
@@ -11,16 +11,22 @@
   same whatever implements a layer.  A kernel launched through ctypes is
   invisible to the counter.  The JAX package reads the compiled XLA
   executable instead.
+* ``count_params``: a model's number of parameters.
 * ``fence`` (``torch.cuda.synchronize``: CUDA work is asynchronous, so a
-  host clock must be closed by it).
+  host clock must be closed by it), and the meters that close their
+  clocks with it: ``Timer`` and ``throughput``.
+* ``trace``: a ``torch.profiler`` session that writes a Chrome trace
+  (TensorBoard's layout), where the JAX package's writes an XProf one.
 
 ``enable_compile_cache`` has no counterpart: nothing here is compiled by
 XLA, and the port's kernels are built once per checkout by ``ops._build``.
-``count_params``, ``throughput``, ``trace`` and ``Timer`` are not ported:
-the benchmark calls none of them.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+import time
 
 import torch
 from torch import nn
@@ -69,3 +75,64 @@ def fence(out):
         torch.cuda.synchronize(dev)
     return out
 
+
+
+def count_params(model: nn.Module) -> int:
+    """The number of parameters of ``model`` (each shared one once)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+class Timer:
+    """Wall-clock timer that closes each measurement with ``fence``: put
+    the work's output in the yielded dict's ``"result"``."""
+
+    def __init__(self):
+        self.times: list[float] = []
+
+    @contextlib.contextmanager
+    def measure(self):
+        t0 = time.perf_counter()
+        out = {}
+        yield out
+        if "result" in out:
+            fence(out["result"])
+        self.times.append(time.perf_counter() - t0)
+
+    @property
+    def mean(self) -> float:
+        return sum(self.times) / max(len(self.times), 1)
+
+
+def throughput(fn, args, batch_size: int, iters: int = 50,
+               warmup: int = 2) -> float:
+    """Images a second of ``fn(*args)`` over ``iters`` calls after
+    ``warmup`` more, each end closed by ``fence`` on the output."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    fence(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    fence(out)
+    return batch_size * iters / (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """A ``torch.profiler`` session over the block (the host's activity,
+    and the card's where there is one), written on exit as a Chrome trace
+    (``<worker>.<ns>.pt.trace.json``) under ``logdir``, which TensorBoard
+    and chrome://tracing read.  Yields the profiler."""
+    os.makedirs(logdir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir))
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()

@@ -54,6 +54,9 @@ def test_import_pulls_in_no_jax():
             "import pranet2_tpu_torch.data.preprocess\n"
             "import pranet2_tpu_torch.utils.logging_utils\n"
             "import pranet2_tpu_torch.cli.reproduce_baseline\n"
+            "import pranet2_tpu_torch.nn\n"
+            "import pranet2_tpu_torch.models.backbones\n"
+            "import pranet2_tpu_torch.models.backbones.pvtv2\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

@@ -8,7 +8,8 @@ on its ResNet-18 encoder: the encoder without drop path, so that a train
 step can be held against JAX's (PVTv2 draws its drop path masks from
 another generator; its training is held to "finite and learning").
 
-* The train step in float64 (JAX under x64), two AdamW steps on one batch
+* The train step in float64 (JAX under x64), plain and with ``remat``
+  (bit-equal to plain), two AdamW steps on one batch
   of 2 at 64 x 64: each loss within 1e-9 relative; every parameter within
   1e-8 + 1e-6 relative and every BatchNorm statistic within 1e-9 + 1e-8
   relative of JAX's after the second (measured: 2e-10 and 6e-10 at most).
@@ -90,7 +91,8 @@ def _tree_to_np(tree, dtype=np.float64):
 @pytest.fixture(scope="module")
 def step_pair():
     """Two float64 train steps on one batch on each side, from the same
-    weights: (JAX's losses and variables, the port's)."""
+    weights: (JAX's losses and variables, the port's, and the weights and
+    batch)."""
     rng = np.random.default_rng(0)
     images = rng.standard_normal((BATCH, SIZE, SIZE, 1))
     labels = rng.integers(0, NC, (BATCH, SIZE, SIZE))
@@ -116,6 +118,12 @@ def step_pair():
             losses.append(float(loss))
         want = (losses, _tree_to_np(state.variables))
 
+    return want, _port_steps(v, images, labels, cfg), (v, images, labels)
+
+
+def _port_steps(v, images, labels, cfg):
+    """The port's two float64 steps on ``v``: each loss and the variables
+    after them in flax layout."""
     port = _port(v, dtype=torch.float64)
     pstate = TrainState(port, make_optimizer(
         port.parameters(), cfg.lr, clip_value=None,
@@ -133,19 +141,10 @@ def step_pair():
         got = _tree_to_np(convert_state_dict(
             {k: t.numpy() for k, t in port.state_dict().items()},
             emcad_key_map(ENC)))
-    return want, (plosses, got)
+    return plosses, got
 
 
-def test_train_step_loss_matches_jax_f64(step_pair):
-    (want, _), (got, _) = step_pair
-    for g, w in zip(got, want):
-        assert abs(g - w) <= 1e-9 * abs(w), (got, want)
-    assert got[1] < got[0]  # two steps on one batch learn it
-
-
-@pytest.mark.parametrize("part", ["params", "batch_stats"])
-def test_train_step_variables_match_jax_f64(step_pair, part):
-    (_, want), (_, got) = step_pair
+def _hold_part(want, got, part):
     g = jax.tree_util.tree_leaves_with_path(got[part])
     w = jax.tree_util.tree_leaves_with_path(want[part])
     assert [p for p, _ in g] == [p for p, _ in w]
@@ -156,11 +155,38 @@ def test_train_step_variables_match_jax_f64(step_pair, part):
                                    err_msg=key)
 
 
-def test_remat_raises():
-    model = get_model("emcad", device="cpu", num_classes=NC, encoder=ENC)
-    with pytest.raises(NotImplementedError):
-        port_mc.make_multiclass_train_step(
-            model, port_mc.MulticlassTrainConfig(remat=True))
+def test_train_step_loss_matches_jax_f64(step_pair):
+    (want, _), (got, _), _ = step_pair
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-9 * abs(w), (got, want)
+    assert got[1] < got[0]  # two steps on one batch learn it
+
+
+@pytest.mark.parametrize("part", ["params", "batch_stats"])
+def test_train_step_variables_match_jax_f64(step_pair, part):
+    (_, want), (_, got), _ = step_pair
+    _hold_part(want, got, part)
+
+
+def test_remat_step_matches_jax_f64(step_pair):
+    """The two steps with ``remat=True`` (each ResNet-18 block
+    checkpointed) against JAX's, at the tolerances above (JAX's
+    ``jax.checkpoint`` does not change values: its plain step is the
+    reference), and equal to the port's plain steps bit for bit: the
+    losses, the parameters and the BatchNorm statistics."""
+    (wlosses, want), (plosses, plain), (v, images, labels) = step_pair
+    cfg = port_mc.MulticlassTrainConfig(num_classes=NC, batch_size=BATCH,
+                                        img_size=SIZE, remat=True)
+    losses, got = _port_steps(v, images, labels, cfg)
+    for g, w in zip(losses, wlosses):
+        assert abs(g - w) <= 1e-9 * abs(w), (losses, wlosses)
+    for part in ("params", "batch_stats"):
+        _hold_part(want, got, part)
+    assert losses == plosses
+    for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(got),
+                                 jax.tree_util.tree_leaves_with_path(plain)):
+        np.testing.assert_array_equal(a, b,
+                                      err_msg=jax.tree_util.keystr(path))
 
 
 # ------------------------------------------------------ volume inference

@@ -27,6 +27,8 @@ Checks, in dependency order:
    updates: Adam's direction g / (|g| + 1e-8) turns fast where |g| is near
    1e-8, so float64 ordering noise (a few 1e-12 on such an element) moves
    the update there by up to ~1e-8.
+5. The port's step with ``remat=True`` held to 1-4, and to the port's
+   plain step bit for bit.
 
 JAX's jitted ``value_and_grad`` of this model in x64 takes about half a
 minute with its compile on this host; it runs once, in a module fixture.
@@ -110,13 +112,12 @@ def jax_side():
                     params=_tree_to_np(after))
 
 
-@pytest.fixture(scope="module")
-def port_side(jax_side):
-    """The port's float64 step on the same weights and batch, through its
+def _port_step(variables, remat=False):
+    """The port's float64 step on ``variables`` and the batch, through its
     train step; the gradients are read as ``apply_gradients`` takes them."""
     x, gts = _batch()
     model = get_model("pranet_v2", device="cpu", num_class=1).double()
-    load_jax_variables(model, jax_side["variables"])
+    load_jax_variables(model, variables)
     state = TrainState(
         model, make_optimizer(model.parameters(), LR, clip_value=CLIP))
     grads = {}
@@ -127,7 +128,8 @@ def port_side(jax_side):
                       for k, p in self.model.named_parameters()})
         apply(self)
 
-    step = make_train_step(model, target_size=SIZE, rescale=False)
+    step = make_train_step(model, target_size=SIZE, rescale=False,
+                           remat=remat)
     to_t = lambda a: torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
     TrainState.apply_gradients = spy
     try:
@@ -137,6 +139,12 @@ def port_side(jax_side):
     assert state.step == 1 and loss.dtype == torch.float64
     return dict(loss=loss.item(), losses=losses, grads=grads,
                 after={k: v.numpy() for k, v in model.state_dict().items()})
+
+
+@pytest.fixture(scope="module")
+def port_side(jax_side):
+    """The port's plain float64 step on JAX's weights and batch."""
+    return _port_step(jax_side["variables"])
 
 
 def _port_update(variables, grads):
@@ -175,29 +183,48 @@ def _assert_trees_close(got, want, atol, rtol, what):
                                            f"{jax.tree_util.keystr(path)}")
 
 
-def test_loss_matches_jax(jax_side, port_side):
-    assert abs(port_side["loss"] - jax_side["loss"]) <= 1e-9 * abs(
-        jax_side["loss"]), (port_side["loss"], jax_side["loss"])
-    assert port_side["losses"].shape == (4,)
+def _hold_loss(port, jax_side):
+    assert abs(port["loss"] - jax_side["loss"]) <= 1e-9 * abs(
+        jax_side["loss"]), (port["loss"], jax_side["loss"])
+    assert port["losses"].shape == (4,)
 
 
-def test_gradients_match_jax(jax_side, port_side):
-    grads = port_side["grads"]
+def _hold_gradients(port, jax_side):
+    grads = port["grads"]
     stem = [k for k in grads if k.startswith("conv.")]
     assert stem and all(grads[k] is None for k in stem)
     missing = [k for k, g in grads.items() if g is None and k not in stem]
     assert not missing, missing
     # the buffers' entries only carry them through the conversion
     sd = {k: v if grads.get(k) is None else grads[k].numpy()
-          for k, v in port_side["after"].items()}
+          for k, v in port["after"].items()}
     _assert_trees_close(_flax(sd, "params"), jax_side["grads"], atol=1e-8,
                         rtol=1e-6, what="grad")
 
 
-def test_batchnorm_stats_match_jax(jax_side, port_side):
-    _assert_trees_close(_flax(port_side["after"], "batch_stats"),
+def _hold_stats(port, jax_side):
+    _assert_trees_close(_flax(port["after"], "batch_stats"),
                         jax_side["stats"], atol=1e-10, rtol=1e-8,
                         what="batch_stat")
+
+
+def _hold_own_update(port, jax_side):
+    """The port's own step took its optimizer's update of its gradients."""
+    own = _port_update(jax_side["variables"], port["grads"])
+    for k in port["grads"]:
+        np.testing.assert_array_equal(port["after"][k], own[k], err_msg=k)
+
+
+def test_loss_matches_jax(jax_side, port_side):
+    _hold_loss(port_side, jax_side)
+
+
+def test_gradients_match_jax(jax_side, port_side):
+    _hold_gradients(port_side, jax_side)
+
+
+def test_batchnorm_stats_match_jax(jax_side, port_side):
+    _hold_stats(port_side, jax_side)
 
 
 def test_params_after_clip_adam_match_jax(jax_side, port_side):
@@ -211,10 +238,33 @@ def test_params_after_clip_adam_match_jax(jax_side, port_side):
     after = _port_update(jax_side["variables"], jax_grads)
     _assert_trees_close(_flax(after, "params"), jax_side["params"],
                         atol=5e-9, rtol=1e-8, what="post-step param")
-    own = _port_update(jax_side["variables"], port_side["grads"])
-    for k in port_side["grads"]:
-        np.testing.assert_array_equal(port_side["after"][k], own[k],
-                                      err_msg=k)
+    _hold_own_update(port_side, jax_side)
+
+
+def test_remat_step_matches_jax(jax_side, port_side):
+    """The same step with ``remat=True`` (each backbone block
+    checkpointed) against JAX's step, at the tolerances above: JAX's
+    ``jax.checkpoint`` does not change values, so its plain step is the
+    reference.  It is also the port's plain step bit for bit: the loss,
+    every gradient, the parameters after clip + Adam and the BatchNorm
+    statistics (one forward's update: ``num_batches_tracked`` 1)."""
+    remat = _port_step(jax_side["variables"], remat=True)
+    _hold_loss(remat, jax_side)
+    _hold_gradients(remat, jax_side)
+    _hold_stats(remat, jax_side)
+    _hold_own_update(remat, jax_side)
+    assert remat["loss"] == port_side["loss"]
+    for k, g in port_side["grads"].items():
+        assert (g is None) == (remat["grads"][k] is None), k
+        if g is not None:
+            assert torch.equal(g, remat["grads"][k]), k
+    for k, v in port_side["after"].items():
+        np.testing.assert_array_equal(remat["after"][k], v, err_msg=k)
+    tracked = {k: int(v) for k, v in remat["after"].items()
+               if k.endswith("num_batches_tracked")}
+    # the grayscale stem's BatchNorm: an RGB batch does not reach it
+    assert tracked.pop("conv.1.num_batches_tracked") == 0
+    assert len(tracked) > 100 and set(tracked.values()) == {1}
 
 
 def test_two_rank_step_matches_jax(jax_side, tmp_path):

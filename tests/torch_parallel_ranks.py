@@ -130,10 +130,10 @@ class _Spy:
 
 
 def binary_steps(x, gts, n_steps: int, one_block: bool,
-                 state_dict=None):
+                 state_dict=None, remat: bool = False):
     """``n_steps`` float64 train steps of ``pranet_v2`` (clip + Adam,
-    ``make_train_step`` at the batch's size) on this rank's rows of the
-    global NHWC batch ``x``/``gts``.  Returns each step's loss averaged
+    ``make_train_step`` at the batch's size, checkpointed blocks with
+    ``remat``) on this rank's rows of the global NHWC batch ``x``/``gts``.  Returns each step's loss averaged
     over the ranks, the first step's gradients, the ``state_dict`` after
     the first step and after the last."""
     from pranet2_tpu_torch import get_model, parallel
@@ -152,7 +152,8 @@ def binary_steps(x, gts, n_steps: int, one_block: bool,
                                              clip_value=CLIP))
     spy = _Spy()
     spy.install(state)
-    step = make_train_step(net, target_size=x.shape[1], rescale=False)
+    step = make_train_step(net, target_size=x.shape[1], rescale=False,
+                           remat=remat)
     rows = _rows(x.shape[0])
     to_t = lambda a: torch.from_numpy(
         np.ascontiguousarray(a[rows].transpose(0, 3, 1, 2)))
@@ -177,7 +178,7 @@ MERIT = dict(name="merit_cascaded", num_classes=4, model_scale="dryrun",
 
 
 def multiclass_steps(model_kw: dict, images, labels, n_steps: int,
-                     fault: str | None = None):
+                     fault: str | None = None, remat: bool = False):
     """``n_steps`` float64 train steps (4 classes, AdamW) of the model
     ``model_kw`` names (EMCAD on PVTv2-b0 with drop path 0.1, or MERIT at
     the dryrun widths with its relative-position dropout) on this rank's
@@ -187,7 +188,8 @@ def multiclass_steps(model_kw: dict, images, labels, n_steps: int,
     ``fault``, for the negative controls: ``"per_rank_masks"`` draws every
     mask for this rank's rows alone; ``"shard_table"`` treats MaxViT's
     relative-position table as batch rows, so each rank masks it with
-    its own rows of a larger draw."""
+    its own rows of a larger draw.  ``remat``: the steps checkpoint each
+    encoder block."""
     import pranet2_tpu_torch.train.multiclass as tm
     from pranet2_tpu_torch import get_model, parallel
     from pranet2_tpu_torch.nn import Dropout
@@ -207,7 +209,7 @@ def multiclass_steps(model_kw: dict, images, labels, n_steps: int,
         for m in tables:
             m.batch = True
     cfg = tm.MulticlassTrainConfig(num_classes=4, img_size=images.shape[-1],
-                                   batch_size=images.shape[0])
+                                   batch_size=images.shape[0], remat=remat)
     net = parallel.data_parallel(model)
     state = TrainState(model, make_optimizer(
         model.parameters(), cfg.lr, clip_value=None,
