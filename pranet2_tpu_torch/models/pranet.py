@@ -27,6 +27,9 @@ map5_bg).  In eval with autograd off each level (crops, gate and its maps
 at input resolution; level 4 also map5's) is one call of ``ops.dsra_level``,
 the kernel on a CUDA tensor; otherwise ``ops.dsra_level_plain``, the chain
 of ``resize_bilinear`` and ``ops.dsra_gate``, which has a gradient.
+
+Each forward of either model is one ``model.forward`` span
+(``utils.profiling.span``, recorded only while recording is on).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from pranet2_tpu_torch.models.registry import register_model
 from pranet2_tpu_torch.nn import RFB, ConvBN, PartialDecoder
 from pranet2_tpu_torch.ops import (dsra_gate, dsra_level, dsra_level_plain,
                                    resize_bilinear, reverse_attention)
+from pranet2_tpu_torch.utils.profiling import span
 
 # level -> (trunk width, trunk convs, trunk kernel, head kernel,
 #           head index in the torch names): V2's DSRA branches and V1's
@@ -112,16 +116,19 @@ class PraNetV1(nn.Module):
         return getattr(self, f"ra{lvl}_conv{2 + _DSRA[lvl][1]}")(x) + crop
 
     def forward(self, x):
-        x = x.to(self.agg1.conv5.weight.dtype)  # the compute type
-        h, w = x.shape[-2:]
-        _, x2, x3, x4 = getattr(self, self.encoder_name)(x)
-        prev = self.agg1(self.rfb4_1(x4), self.rfb3_1(x3), self.rfb2_1(x2))
-        maps = [resize_bilinear(prev, (h, w))]
-        for lvl, stage in ((4, x4), (3, x3), (2, x2)):
-            prev = self._ra_branch(
-                lvl, resize_bilinear(prev, tuple(stage.shape[-2:])), stage)
-            maps.append(resize_bilinear(prev, (h, w)))
-        return tuple(maps)
+        with span("model.forward"):
+            x = x.to(self.agg1.conv5.weight.dtype)  # the compute type
+            h, w = x.shape[-2:]
+            _, x2, x3, x4 = getattr(self, self.encoder_name)(x)
+            prev = self.agg1(self.rfb4_1(x4), self.rfb3_1(x3),
+                             self.rfb2_1(x2))
+            maps = [resize_bilinear(prev, (h, w))]
+            for lvl, stage in ((4, x4), (3, x3), (2, x2)):
+                prev = self._ra_branch(
+                    lvl, resize_bilinear(prev, tuple(stage.shape[-2:])),
+                    stage)
+                maps.append(resize_bilinear(prev, (h, w)))
+            return tuple(maps)
 
 
 class PraNetV2(nn.Module):
@@ -157,32 +164,34 @@ class PraNetV2(nn.Module):
                 getattr(self, f"ra{lvl}_conv{hi}_bg")(x))
 
     def forward(self, x):
-        x = x.to(self.conv[0].weight.dtype)  # every conv has the compute type
-        if x.shape[1] == 1:
-            x = self.conv(x)
-        h, w = x.shape[-2:]
-        _, x2, x3, x4 = self.backbone(x)
-        ra5_fg, ra5_bg = self.agg1(self.rfb4_1(x4), self.rfb3_1(x3),
-                                   self.rfb2_1(x2))
-        # the kernel is forward only: the chain, with the gate's Function,
-        # wherever autograd records
-        kernels = not (self.training or torch.is_grad_enabled())
-        fg_maps, bg_maps = [], []
-        prev_fg, prev_bg = ra5_fg, ra5_bg
-        for lvl, stage in ((4, x4), (3, x3), (2, x2)):
-            ra_fg, ra_bg = self._dsra_branch(lvl, stage)
-            args = (prev_fg, prev_bg, ra_fg, ra_bg, (h, w), self.use_softmax,
-                    lvl == 4)
-            gated, map_fg, map_bg, *map5 = (
-                dsra_level(*args) if kernels
-                else dsra_level_plain(*args, gate=dsra_gate))
-            fg_maps.insert(0, map_fg)
-            bg_maps.insert(0, map_bg)
-            if map5:
-                fg_maps.append(map5[0])
-                bg_maps.append(map5[1])
-            prev_fg, prev_bg = gated, ra_bg
-        return (*fg_maps, *bg_maps)
+        with span("model.forward"):
+            # every conv has the compute type
+            x = x.to(self.conv[0].weight.dtype)
+            if x.shape[1] == 1:
+                x = self.conv(x)
+            h, w = x.shape[-2:]
+            _, x2, x3, x4 = self.backbone(x)
+            ra5_fg, ra5_bg = self.agg1(self.rfb4_1(x4), self.rfb3_1(x3),
+                                       self.rfb2_1(x2))
+            # the kernel is forward only: the chain, with the gate's
+            # Function, wherever autograd records
+            kernels = not (self.training or torch.is_grad_enabled())
+            fg_maps, bg_maps = [], []
+            prev_fg, prev_bg = ra5_fg, ra5_bg
+            for lvl, stage in ((4, x4), (3, x3), (2, x2)):
+                ra_fg, ra_bg = self._dsra_branch(lvl, stage)
+                args = (prev_fg, prev_bg, ra_fg, ra_bg, (h, w),
+                        self.use_softmax, lvl == 4)
+                gated, map_fg, map_bg, *map5 = (
+                    dsra_level(*args) if kernels
+                    else dsra_level_plain(*args, gate=dsra_gate))
+                fg_maps.insert(0, map_fg)
+                bg_maps.insert(0, map_bg)
+                if map5:
+                    fg_maps.append(map5[0])
+                    bg_maps.append(map5[1])
+                prev_fg, prev_bg = gated, ra_bg
+            return (*fg_maps, *bg_maps)
 
 
 @register_model("pranet_v1")

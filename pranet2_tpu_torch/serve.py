@@ -11,6 +11,12 @@ model on each, every batch split into equal contiguous chunks, one a
 replica, as ``shard_map`` splits it over the mesh's ``data`` axis.  Every
 op of the eval forward works image by image (BatchNorm on its running
 statistics, the min-max per image), so the split changes no mask.
+
+Spans (``utils.profiling.span``, recorded only while recording is on),
+each keyed by the predictor's batch number: ``serve.decode`` and
+``serve.launch`` around a batch's two stages, ``serve.copyout_wait`` around
+the wait for its copy-out, ``serve.resize`` around each image's resize to
+native size.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from pranet2_tpu_torch.data.polyp import preprocess_image
 from pranet2_tpu_torch.device import resolve
 from pranet2_tpu_torch.models import get_model
 from pranet2_tpu_torch.ops.resize import resize_bilinear_np
+from pranet2_tpu_torch.utils.profiling import span
 
 
 def is_v2(model_name: str) -> bool:
@@ -110,6 +117,7 @@ class BinaryPredictor:
             host_workers = min(os.cpu_count() or 1, batch_size)
         self._pool = (ThreadPoolExecutor(max_workers=host_workers)
                       if host_workers > 1 else None)
+        self._batches = itertools.count()  # the spans' keys
 
     def close(self):
         """Stop the host decode threads."""
@@ -176,21 +184,24 @@ class BinaryPredictor:
             launched.append((host, ready))
         return launched
 
-    def _postprocess(self, launched, chunk):
-        for _, ready in launched:
-            if ready is not None:
-                ready.synchronize()
+    def _postprocess(self, launched, chunk, key=None):
+        with span("serve.copyout_wait", key):
+            for _, ready in launched:
+                if ready is not None:
+                    ready.synchronize()
         hosts = [host for host, _ in launched]
         result = (hosts[0] if len(hosts) == 1 else torch.cat(hosts)).numpy()
         for r, im in zip(result[: len(chunk)], chunk):
             h, w = np.asarray(im).shape[:2]
             if self.exact_postproc:
-                x = resize_bilinear_np(r, (h, w))[0]
+                with span("serve.resize", key):
+                    x = resize_bilinear_np(r, (h, w))[0]
                 x = expit(x)
                 x = (x - x.min()) / (x.max() - x.min() + 1e-8)
                 yield (x * 255).astype(np.uint8)
             else:
-                x = resize_bilinear_np(r.astype(np.float32), (h, w))[0]
+                with span("serve.resize", key):
+                    x = resize_bilinear_np(r.astype(np.float32), (h, w))[0]
                 yield np.clip(x, 0, 255).astype(np.uint8)
 
     def stream(self, images):
@@ -208,10 +219,14 @@ class BinaryPredictor:
             chunk = list(itertools.islice(it, self.batch_size))
             if not chunk:
                 break
-            launched = self._launch(self._preprocess(chunk))
+            key = next(self._batches)
+            with span("serve.decode", key):
+                batch = self._preprocess(chunk)
+            with span("serve.launch", key):
+                launched = self._launch(batch)
             if prev is not None:
                 yield from self._postprocess(*prev)
-            prev = (launched, chunk)
+            prev = (launched, chunk, key)
         if prev is not None:
             yield from self._postprocess(*prev)
 

@@ -65,6 +65,7 @@ from pranet2_tpu_torch.serve import is_v2, served_logits
 from pranet2_tpu_torch.train.optim import make_optimizer, step_decay_schedule
 from pranet2_tpu_torch.train.state import TrainState
 from pranet2_tpu_torch.utils.checkpoint import save_state
+from pranet2_tpu_torch.utils.profiling import span
 
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -143,23 +144,31 @@ def make_train_step(model: nn.Module, *, target_size: int, rescale: bool,
     gradients, the update and the BatchNorm statistics are the plain
     step's (``nn.keep_batchnorm_stats``); a second forward through the
     backbone's blocks is the cost.
+
+    Spans (``utils.profiling.span``, recorded only while recording is on):
+    ``train.forward`` (the rescale and the loss; the model's
+    ``model.forward`` inside it), ``train.backward`` (``zero_grad`` and the
+    backward), ``train.update`` (the clamp and Adam's update).
     """
     reseed = drop_path_seeder(model, seed,
                               (parallel.rank(), parallel.world()))
 
     def step(state: TrainState, images: torch.Tensor, gts: torch.Tensor):
-        if rescale:
-            size = (target_size, target_size)
-            images = resize_bilinear(images, size, align_corners=True)
-            gts = resize_bilinear(gts, size, align_corners=True)
-        model.train()
-        reseed(state.step)  # the steps of other scales share the modules
-        with remat_scope(remat):
-            loss, losses = train_loss(model, images, gts, compute_dtype)
-        state.optimizer.zero_grad()
-        with keep_batchnorm_stats(model, remat):
-            loss.backward()
-        state.apply_gradients()
+        with span("train.forward"):
+            if rescale:
+                size = (target_size, target_size)
+                images = resize_bilinear(images, size, align_corners=True)
+                gts = resize_bilinear(gts, size, align_corners=True)
+            model.train()
+            reseed(state.step)  # the steps of other scales share the modules
+            with remat_scope(remat):
+                loss, losses = train_loss(model, images, gts, compute_dtype)
+        with span("train.backward"):
+            state.optimizer.zero_grad()
+            with keep_batchnorm_stats(model, remat):
+                loss.backward()
+        with span("train.update"):
+            state.apply_gradients()
         return state, loss.detach(), torch.stack(losses).detach()
 
     return step
