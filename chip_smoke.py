@@ -17,7 +17,12 @@
    checked at PVTv2-b2's hidden shapes; the bare maxpool, which the served
    forwards no longer call, at the shape it had; the standalone gate, the
    forward of the gate's autograd Function and so the training path's
-   kernel, at the train step's shapes in float32, bf16 and float64.
+   kernel, at the train step's shapes in float32, bf16 and float64.  The
+   served masks' kernel (``native_masks``: resize to native size, sigmoid,
+   min-max, uint8; two launches) at a served batch of 16 at the polyp test
+   sets' sizes and at an HD frame: every pixel within a level of its plain
+   version, at most 1e-3 of them apart; its library chain is ATen's, per
+   image.
 3. Serves eight paths of the port (full width and depth, random weights
    from a seed), in bf16 at 352x352, batch 16: PraNet-V2 on Res2Net-50, the
    same with its fused Res2Net blocks (``fused=True, tailfuse=True``),
@@ -27,7 +32,9 @@
    ResNet-50 (no decoder kernel: V1's reverse attention and resizes are
    ATen; the finest map served); each through ``serve.BinaryPredictor.stream``
    over seeded synthetic images, with the kernels' launch counters set to 0
-   just before and read just after; times the forward alone (CUDA events),
+   just before and read just after (one ``native_masks`` a batch: the exact
+   path's masks are made on the card); holds ``native_masks`` on the
+   path's own logits as in 2; times the forward alone (CUDA events),
    its device time by kernel (torch.profiler) and the host stages of one
    batch, and finds in a CPU-side trace none of the ATen ops the stem and
    decoder kernels replaced (``replaced_ops``); then checks the bf16
@@ -111,7 +118,8 @@
    ``F.batch_norm``.  ``BinaryPredictor(devices=["cuda:0"] * 2)`` (bf16,
    352, batch 16) against one device's: the masks equal to one device's
    at the chunk's batch (float32: within a level of batch 16's), a
-   ``stem_pool`` and 3 ``dsra_level`` a forward in each replica, each
+   ``stem_pool``, 3 ``dsra_level`` and a ``native_masks`` a forward in
+   each replica, each
    replica's kernels held at its chunk's shapes.  With two cards, the
    ranks and the replicas again on two cards (NCCL); else "skipped (1
    card)".  Then
@@ -238,7 +246,8 @@ LAUNCH_LABELS = {"stem_pool_kernel": "stem_pool",
                  "conv3x3_kernel": "conv3x3",
                  "split_reduce_kernel": "split_reduce",
                  "res2_conv_kernel": "conv_f32",
-                 "res2_split_epilogue": "split_epilogue_f32"}
+                 "res2_split_epilogue": "split_epilogue_f32",
+                 "minmax_kernel": "mask_minmax", "write_kernel": "mask_write"}
 
 
 # The tracer drops the device events that it places outside a session's
@@ -783,22 +792,25 @@ def check_pvt_mlp(torch, dev) -> dict:
 
 
 def _one_launch(torch, fn, label, what, calls: int = 5) -> dict:
-    """``launch_profile`` of ``fn``, which must launch ``label``'s kernel
-    once a call and no other kernel."""
-    key = next(k for k, v in LAUNCH_LABELS.items() if v == label)
+    """``launch_profile`` of ``fn``, which must launch the kernel of
+    ``label`` (or of each label of a tuple) once a call and no other
+    kernel."""
+    labels = (label,) if isinstance(label, str) else tuple(label)
+    keys = [k for k, v in LAUNCH_LABELS.items() if v in labels]
     # a session that lost some of its events is traced again, up to
     # TRACE_TRIES times, while the count is short
     for _ in range(TRACE_TRIES):
-        prof, names = _profile(torch, fn, (label,), calls)
-        if any(key not in n for n in names):
+        prof, names = _profile(torch, fn, labels, calls)
+        if any(not any(k in n for k in keys) for n in names):
             raise AssertionError(f"{what}: launches {names}; expected "
-                                 f"{label} alone")
-        if abs(prof[label]["per_call"] - 1) < 1e-9:
+                                 f"{labels} alone")
+        if all(abs(prof[lb]["per_call"] - 1) < 1e-9 for lb in labels):
             break
         TRACES["short"] += 1
     else:
-        raise AssertionError(f"{what}: {prof[label]['per_call']} launches "
-                             f"of {label} a call; expected one")
+        counts = [prof[lb]["per_call"] for lb in labels]
+        raise AssertionError(f"{what}: {counts} launches of {labels} a "
+                             f"call; expected one each")
     return prof
 
 
@@ -1348,6 +1360,108 @@ def check_bottle2neck(torch, dev) -> dict:
     return out
 
 
+# native sizes of the served masks: a batch of 16 at the polyp test sets'
+# sizes (ETIS; CVC-300 and ColonDB; ClinicDB, 288 rows, down along H from
+# 352; Kvasir's largest) and one HD frame, the video's
+MASK_BATCH_SIZES = [(966, 1225), (500, 574), (288, 384), (1072, 1920)] * 4
+MASK_HD_SIZES = [(1080, 1920)]
+MASK_LEVEL_TOL, MASK_SHARE_TOL = 1, 1e-3  # levels a pixel; share of pixels
+
+
+def hold_native_masks(torch, np, logits, sizes, what) -> dict:
+    """``native_masks`` against ``native_masks_plain`` on the same card and
+    logits: every pixel within ``MASK_LEVEL_TOL`` levels, at most
+    ``MASK_SHARE_TOL`` of each mask's pixels apart."""
+    from pranet2_tpu_torch.ops import native_mask
+
+    got, offsets = native_mask.native_masks(logits, sizes)
+    want, _ = native_mask.native_masks_plain(logits, sizes)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    worst, share = 0, 0.0
+    for off, (h, w) in zip(offsets, sizes):
+        d = np.abs(got[off:off + h * w].astype(np.int16)
+                   - want[off:off + h * w].astype(np.int16))
+        worst, share = max(worst, int(d.max())), max(share,
+                                                     float((d > 0).mean()))
+    if worst > MASK_LEVEL_TOL or share > MASK_SHARE_TOL:
+        raise AssertionError(f"native_masks {what}: {worst} levels, {share} "
+                             f"of a mask's pixels from its plain version")
+    return {"max_level_diff": worst, "unequal_share": share}
+
+
+def check_native_mask(torch, dev) -> dict:
+    """``native_masks`` (the served masks at native size: two launches)
+    held to ``native_masks_plain`` at a served batch's logits (16 x 1 x
+    352^2 float32, ``MASK_BATCH_SIZES``) and at an HD frame's (batch 1);
+    the logits a smooth field, bilinear from 44^2 as the decoder's maps.
+    The library chain is ATen's per image (resize, sigmoid, min-max, cast,
+    each mask its own tensor), which the plain version also packs into one
+    buffer.  The bound counts the masks' bytes written and each image's map
+    read once (it stays in L2 for the second pass); about 30 operations a
+    pixel over both passes (taps, sigmoid, min-max, normalise)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pranet2_tpu_torch.ops import native_mask
+
+    def chain(logits, sizes):
+        out = []
+        for lg, (h, w) in zip(logits, sizes):
+            x = torch.sigmoid(F.interpolate(lg[None], size=(h, w),
+                                            mode="bilinear",
+                                            align_corners=False))
+            lo, hi = torch.aminmax(x)
+            out.append(((x - lo) / (hi - lo + 1e-8) * 255).to(torch.uint8))
+        return out
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for sizes in (MASK_BATCH_SIZES, MASK_HD_SIZES):
+        coarse = torch.randn((len(sizes), 1, 44, 44), generator=g,
+                             device=dev) * 4
+        logits = F.interpolate(coarse, size=(SIZE, SIZE), mode="bilinear",
+                               align_corners=False).contiguous()
+        held = hold_native_masks(torch, np, logits, sizes,
+                                 f"at {len(sizes)} x {SIZE}^2")
+        packed, _ = native_mask.native_masks(logits, sizes)
+        b, by = bound_ms(packed.numel() + len(sizes) * SIZE * SIZE * 4,
+                         30 * sum(h * w for h, w in sizes))
+        kernel = lambda: native_mask.native_masks(logits, sizes)
+        library = lambda: chain(logits, sizes)
+        rows.append({"shape": list(logits.shape), "sizes": sizes, **held,
+                     "ms": time_ms(kernel),
+                     "device_ms": kernel_ms(torch, kernel),
+                     "host_ms": host_ms(torch, kernel),
+                     "plain_ms": time_ms(
+                         lambda: native_mask.native_masks_plain(logits,
+                                                                sizes),
+                         reps=5, rounds=3),
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": time_ms(library, reps=5, rounds=3),
+                     "library_device_ms": kernel_ms(torch, library, calls=5),
+                     "launches_by_kernel": _one_launch(
+                         torch, kernel, ("mask_minmax", "mask_write"),
+                         "native_masks")})
+    batch, hd = rows
+    print(f"native_masks: batch of 16 ms {batch['ms']:.4f}, device "
+          f"{batch['device_ms']:.4f}, host {batch['host_ms']:.4f}, plain "
+          f"{batch['plain_ms']:.4f}, ATen chain {batch['library_ms']:.4f} "
+          f"(device {batch['library_device_ms']:.4f}), bound "
+          f"{batch['bound_ms']:.5f}; HD frame device {hd['device_ms']:.4f}, "
+          f"ATen chain device {hd['library_device_ms']:.4f}, bound "
+          f"{hd['bound_ms']:.5f}")
+    return {"name": "native_masks", "route": "cuda",
+            "source": "pranet2_tpu_torch/csrc/native_mask.cu",
+            "replaces": "pranet2_tpu/serve.py:140 (host resize, no kernel)",
+            "max_abs_err": max(r["max_level_diff"] for r in rows),
+            "unequal_share": max(r["unequal_share"] for r in rows),
+            **{k: batch[k] for k in ("ms", "device_ms", "host_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_device_ms",
+                                     "launches_by_kernel")},
+            "shapes": rows}
+
+
 def synthetic_images(np, n: int) -> list:
     rng = np.random.default_rng(0)
     return [rng.integers(0, 256, (int(rng.integers(288, 577)),
@@ -1356,7 +1470,7 @@ def synthetic_images(np, n: int) -> list:
 
 
 # served paths: label -> (model, get_model keyword arguments, launches per
-# forward by kernel)
+# forward by kernel); each served batch's masks are one native_masks
 _NO_PVT = {"mlp_block": 0, "sra_attention": 0, "sra_block": 0,
            "pvt_block": 0}
 _NO_RES2 = {"fused_bottle2neck": 0, "fused_tail": 0}
@@ -1365,32 +1479,35 @@ _NO_RES2 = {"fused_bottle2neck": 0, "fused_tail": 0}
 # autograd records take those two): every path's decoder runs three
 # dsra_level launches, and the Res2Net stem one stem_pool
 _TAIL = {"max_pool3x3s2": 0, "dsra_gate": 0, "dsra_level": 3,
-         "depthwise_conv3x3": 0}
+         "depthwise_conv3x3": 0, "native_masks": 0}
+_SERVED = {"native_masks": 1}
 _PVT = {**_TAIL, "stem_pool": 0, **_NO_RES2}
 # PraNet-V1 has no DSRA gate: its reverse attention and resizes are ATen
 _V1 = {**_TAIL, "dsra_level": 0}
 PATHS = {
     "pranet_v2": ("pranet_v2", {}, {**_TAIL, "stem_pool": 1, **_NO_RES2,
-                                    **_NO_PVT}),
+                                    **_NO_PVT, **_SERVED}),
     "pranet_v2_fused": ("pranet_v2", {"fused": True, "tailfuse": True},
                         {**_TAIL, "stem_pool": 1, "fused_bottle2neck": 12,
-                         "fused_tail": 4, **_NO_PVT}),
+                         "fused_tail": 4, **_NO_PVT, **_SERVED}),
     "pvt_pranet_v2": ("pvt_pranet_v2", {}, {**_PVT, **_NO_PVT,
                                             "mlp_block": 16,
-                                            "sra_attention": 16}),
+                                            "sra_attention": 16, **_SERVED}),
     "pvt_pranet_v2_attn_v2": ("pvt_pranet_v2", {"attn_impl": "v2"},
                               {**_PVT, **_NO_PVT, "mlp_block": 16,
-                               "sra_block": 16}),
+                               "sra_block": 16, **_SERVED}),
     "pvt_pranet_v2_blockfuse": ("pvt_pranet_v2", {"blockfuse": True},
-                                {**_PVT, **_NO_PVT, "pvt_block": 16}),
+                                {**_PVT, **_NO_PVT, "pvt_block": 16,
+                                 **_SERVED}),
     "pranet_v1": ("pranet_v1", {}, {**_V1, "stem_pool": 1, **_NO_RES2,
-                                    **_NO_PVT}),
+                                    **_NO_PVT, **_SERVED}),
     "pvt_pranet_v1": ("pvt_pranet_v1", {}, {**_V1, "stem_pool": 0,
                                             **_NO_RES2, **_NO_PVT,
                                             "mlp_block": 16,
-                                            "sra_attention": 16}),
+                                            "sra_attention": 16, **_SERVED}),
     "pranet_v1_resnet": ("pranet_v1_resnet", {}, {**_V1, "stem_pool": 1,
-                                                  **_NO_RES2, **_NO_PVT}),
+                                                  **_NO_RES2, **_NO_PVT,
+                                                  **_SERVED}),
 }
 _NO_MLP = {"plain": 0, "stats": 0, "final_ln": 0}
 MLP_MODES = {"pranet_v2": _NO_MLP, "pranet_v2_fused": _NO_MLP,
@@ -1403,8 +1520,8 @@ MLP_MODES = {"pranet_v2": _NO_MLP, "pranet_v2_fused": _NO_MLP,
 
 
 def _wrappers():
-    from pranet2_tpu_torch.ops import (dsra, dwconv, pvt_attn, pvt_mlp,
-                                       res2_block, res2_tail, stem)
+    from pranet2_tpu_torch.ops import (dsra, dwconv, native_mask, pvt_attn,
+                                       pvt_mlp, res2_block, res2_tail, stem)
     from pranet2_tpu_torch.ops.pvt_block import pvt_block
 
     return {"max_pool3x3s2": stem.max_pool3x3s2, "dsra_gate": dsra.dsra_gate,
@@ -1414,7 +1531,8 @@ def _wrappers():
             "mlp_block": pvt_mlp.mlp_block,
             "sra_attention": pvt_attn.sra_attention,
             "sra_block": pvt_attn.sra_block, "pvt_block": pvt_block,
-            "depthwise_conv3x3": dwconv.depthwise_conv3x3}
+            "depthwise_conv3x3": dwconv.depthwise_conv3x3,
+            "native_masks": native_mask.native_masks}
 
 
 def _reset_counts():
@@ -1467,6 +1585,8 @@ def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
             device = device_time(torch, lambda: pred.model(batch))
             replaced = replaced_ops(torch, lambda: pred.model(batch),
                                     tail=launches["dsra_level"] > 0)
+            masks_held = hold_native_masks(torch, np, logits,
+                                           MASK_BATCH_SIZES, label)
         if replaced:
             raise AssertionError(f"{label}: the forward still runs ops the "
                                  f"stem and decoder kernels replaced: "
@@ -1477,6 +1597,7 @@ def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
                 "forward_ms": fwd_ms,
                 "forward_img_per_s": BATCH / fwd_ms * 1e3,
                 "host": host_time(pred, images[:BATCH]),
+                "native_masks_held": masks_held,
                 "device": device}, (batch, logits)
     finally:
         pred.close()
@@ -1485,7 +1606,7 @@ def run_path(torch, np, label, state_dict) -> tuple[dict, object]:
 def _wait(launched):
     """``launched`` (``BinaryPredictor._launch``'s chunks) once every
     chunk's copy to the host is done."""
-    for _, ready in launched:
+    for _, ready, _ in launched:
         if ready is not None:
             ready.synchronize()
     return launched
@@ -1493,14 +1614,16 @@ def _wait(launched):
 
 def host_time(pred, chunk) -> dict:
     """Host clock for one batch's decode (thread pool) and post-processing
-    (exact mode: float32 logits resized to native size, one image at a
-    time), the two host stages of ``BinaryPredictor.stream``."""
+    (exact mode: each image's native-size mask, made on the card, copied
+    out of the batch's host buffer), the two host stages of
+    ``BinaryPredictor.stream``."""
     t0 = time.perf_counter()
     batch = pred._preprocess(chunk)
+    sizes = [im.shape[:2] for im in chunk]
     t1 = time.perf_counter()
-    launched = _wait(pred._launch(batch))
+    launched = _wait(pred._launch(batch, sizes))
     t2 = time.perf_counter()
-    masks = list(pred._postprocess(launched, chunk))
+    masks = list(pred._postprocess(launched, sizes))
     t3 = time.perf_counter()
     if len(masks) != len(chunk):
         raise AssertionError(f"{len(masks)} masks for {len(chunk)} images")
@@ -3046,7 +3169,8 @@ def run_replicas(torch, np, state_dict, devices) -> dict:
     """``BinaryPredictor(devices=devices)`` (``pranet_v2``, bf16, 352, batch
     16: a chunk a replica) over the synthetic images against the
     one-device predictor: per forward each replica launches ``stem_pool``
-    once and ``dsra_level`` 3 times, no other kernel; the bf16 masks equal
+    once, ``dsra_level`` 3 times and ``native_masks`` once, no other
+    kernel; the bf16 masks equal
     to one device's at the chunk's batch size (the same rows through the
     same convolutions), and reported beside one device's at batch 16
     (cuDNN picks its convolutions by batch size, and bf16 rounds their sums
@@ -3074,7 +3198,8 @@ def run_replicas(torch, np, state_dict, devices) -> dict:
         forwards = -(-PAR_SERVE_IMAGES // BATCH)
         want = {k: 0 for k in launches}
         want.update(stem_pool=len(devices) * forwards,
-                    dsra_level=3 * len(devices) * forwards)
+                    dsra_level=3 * len(devices) * forwards,
+                    native_masks=len(devices) * forwards)
         if launches != want:
             raise AssertionError(f"replicas on {devices}: launches "
                                  f"{launches}, expected {want}")
@@ -3104,8 +3229,9 @@ def run_replicas(torch, np, state_dict, devices) -> dict:
             raise AssertionError(f"replicas on {devices}: float32 masks "
                                  f"{worst_f32} levels from one device's")
         batch = many._preprocess(images[:BATCH])
-        many_ms = time_ms(lambda: _wait(many._launch(batch)), reps=5)
-        one_ms = time_ms(lambda: _wait(one._launch(batch)), reps=5)
+        sizes = [im.shape[:2] for im in images[:BATCH]]
+        many_ms = time_ms(lambda: _wait(many._launch(batch, sizes)), reps=5)
+        one_ms = time_ms(lambda: _wait(one._launch(batch, sizes)), reps=5)
         errs = [_hold_replica_kernels(torch, d, BATCH // len(devices))
                 for d in many.devices]
     finally:
@@ -3535,7 +3661,7 @@ def main() -> int:
                check_res2_tail(torch, dev), check_bottle2neck(torch, dev),
                check_pvt_mlp(torch, dev), check_sra_attention(torch, dev),
                check_sra_block(torch, dev), check_pvt_block(torch, dev),
-               check_dwconv(torch, dev)]
+               check_dwconv(torch, dev), check_native_mask(torch, dev)]
     print("kernels checked against their plain versions")
     _lap("build and kernel checks", clock)
 

@@ -15,8 +15,9 @@ statistics, the min-max per image), so the split changes no mask.
 Spans (``utils.profiling.span``, recorded only while recording is on),
 each keyed by the predictor's batch number: ``serve.decode`` and
 ``serve.launch`` around a batch's two stages, ``serve.copyout_wait`` around
-the wait for its copy-out, ``serve.resize`` around each image's resize to
-native size.
+the wait for its copy-out, ``serve.resize`` around each image's hand-back
+at native size (on the exact path a copy of its mask out of the batch's
+host buffer; else the host resize of the uint8 map).
 """
 
 from __future__ import annotations
@@ -28,11 +29,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 from PIL import Image
-from scipy.special import expit
 
 from pranet2_tpu_torch.data.polyp import preprocess_image
 from pranet2_tpu_torch.device import resolve
 from pranet2_tpu_torch.models import get_model
+from pranet2_tpu_torch.ops.native_mask import native_masks
 from pranet2_tpu_torch.ops.resize import resize_bilinear_np
 from pranet2_tpu_torch.utils.profiling import span
 
@@ -69,13 +70,16 @@ class BinaryPredictor:
         ``utils.convert.state_dict_from_jax`` output loaded into a model).
 
         ``exact_postproc=True`` reproduces the reference export exactly:
-        float32 logits come to the host, are resized to native size, then
-        sigmoid + min-max.  ``False`` runs sigmoid + min-max + uint8 on the
-        device at test size and resizes the uint8 map on the host: 4x less
-        device-to-host traffic, visually equivalent masks.
+        the float32 logits are resized to each image's native size, then
+        sigmoid + min-max + uint8, on the device (``ops.native_masks``, one
+        kernel a batch and replica on a GPU), and only the uint8 masks are
+        copied to the host.  ``False`` runs sigmoid + min-max + uint8 at
+        test size on the device and resizes the uint8 map on the host: 4x
+        less device-to-host traffic than float32 logits, visually
+        equivalent masks.
 
-        ``host_workers``: threads for the per-image decode/resize/normalize
-        (PIL and numpy release the GIL).  ``None`` = ``os.cpu_count()``
+        ``host_workers``: threads for the per-image decode (PIL and numpy
+        release the GIL).  ``None`` = ``os.cpu_count()``
         capped at ``batch_size``; 0 or 1 decodes inline.
 
         ``device``: the GPU unless given (``"cpu"`` for tests).
@@ -139,11 +143,15 @@ class BinaryPredictor:
         return (p * 255.0).to(torch.uint8)
 
     def warmup(self):
-        """One forward of every replica at its chunk's shape."""
+        """One forward of every replica at its chunk's shape and, on the
+        exact path, one mask made from it (the kernel's first use builds
+        it)."""
         b = self.batch_size // len(self.devices)
         for model, dev in zip(self.models, self.devices):
-            self._forward(torch.zeros((b, 3, self.testsize, self.testsize),
-                                      device=dev), model)
+            out = self._forward(torch.zeros(
+                (b, 3, self.testsize, self.testsize), device=dev), model)
+            if self.exact_postproc:
+                native_masks(out, [(self.testsize, self.testsize)])
         for dev in self.devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -165,44 +173,52 @@ class BinaryPredictor:
             arr[i] = img.transpose(2, 0, 1)
         return batch
 
-    def _launch(self, batch: torch.Tensor):
-        """Enqueue one batch: each replica's chunk copied in, forwarded and
-        copied out, all before any is waited for.  Returns, a chunk each,
-        the host tensors and the events that mark them ready (None on the
-        CPU)."""
+    def _launch(self, batch: torch.Tensor, sizes):
+        """Enqueue one batch: each replica's chunk copied in, forwarded, on
+        the exact path made into its images' masks at their native
+        ``sizes`` (h, w), and copied out, all before any is waited for.
+        Returns, a chunk each, the host tensor, the event that marks it
+        ready (None on the CPU) and, on the exact path, the offsets of the
+        chunk's masks in it (else None)."""
         launched = []
+        per = self.batch_size // len(self.devices)
         chunks = batch.chunk(len(self.devices))
-        for model, dev, chunk in zip(self.models, self.devices, chunks):
+        for i, (model, dev, chunk) in enumerate(zip(self.models, self.devices,
+                                                    chunks)):
             out = self._forward(chunk.to(dev, non_blocking=True), model)
+            offsets = None
+            if self.exact_postproc:
+                out, offsets = native_masks(out, sizes[i * per:(i + 1) * per])
             if dev.type != "cuda":
-                launched.append((out, None))
+                launched.append((out, None, offsets))
                 continue
             with torch.cuda.device(dev):
                 host = out.to("cpu", non_blocking=True)  # pinned, async
                 ready = torch.cuda.Event()
                 ready.record()
-            launched.append((host, ready))
+            launched.append((host, ready, offsets))
         return launched
 
-    def _postprocess(self, launched, chunk, key=None):
+    def _postprocess(self, launched, sizes, key=None):
         with span("serve.copyout_wait", key):
-            for _, ready in launched:
+            for _, ready, _ in launched:
                 if ready is not None:
                     ready.synchronize()
-        hosts = [host for host, _ in launched]
+        if self.exact_postproc:
+            packed = [(host.numpy(), offsets) for host, _, offsets in launched]
+            masks = ((buf, off) for buf, offsets in packed for off in offsets)
+            for (buf, off), (h, w) in zip(masks, sizes):
+                with span("serve.resize", key):
+                    # a copy: the mask must not keep the batch's buffer
+                    mask = buf[off:off + h * w].reshape(h, w).copy()
+                yield mask
+            return
+        hosts = [host for host, _, _ in launched]
         result = (hosts[0] if len(hosts) == 1 else torch.cat(hosts)).numpy()
-        for r, im in zip(result[: len(chunk)], chunk):
-            h, w = np.asarray(im).shape[:2]
-            if self.exact_postproc:
-                with span("serve.resize", key):
-                    x = resize_bilinear_np(r, (h, w))[0]
-                x = expit(x)
-                x = (x - x.min()) / (x.max() - x.min() + 1e-8)
-                yield (x * 255).astype(np.uint8)
-            else:
-                with span("serve.resize", key):
-                    x = resize_bilinear_np(r.astype(np.float32), (h, w))[0]
-                yield np.clip(x, 0, 255).astype(np.uint8)
+        for r, (h, w) in zip(result, sizes):
+            with span("serve.resize", key):
+                x = resize_bilinear_np(r.astype(np.float32), (h, w))[0]
+            yield np.clip(x, 0, 255).astype(np.uint8)
 
     def stream(self, images):
         """Pipelined prediction: yields uint8 masks in input order.
@@ -222,11 +238,12 @@ class BinaryPredictor:
             key = next(self._batches)
             with span("serve.decode", key):
                 batch = self._preprocess(chunk)
+                sizes = [np.asarray(im).shape[:2] for im in chunk]
             with span("serve.launch", key):
-                launched = self._launch(batch)
+                launched = self._launch(batch, sizes)
             if prev is not None:
                 yield from self._postprocess(*prev)
-            prev = (launched, chunk, key)
+            prev = (launched, sizes, key)
         if prev is not None:
             yield from self._postprocess(*prev)
 

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from pranet2_tpu_torch import get_model, ops
-from pranet2_tpu_torch.ops import (dsra, dwconv, pvt_attn, pvt_mlp,
-                                   res2_block, res2_tail, stem)
+from pranet2_tpu_torch.ops import (dsra, dwconv, native_mask, pvt_attn,
+                                   pvt_mlp, res2_block, res2_tail, stem)
 from pranet2_tpu_torch.ops.pvt_block import pvt_block, pvt_block_plain
 from pranet2_tpu_torch.ops.pvt_mlp import mlp_tile
 from pranet2_tpu_torch.testing import (excess, level_excess,
@@ -503,7 +503,8 @@ def _replica_masks(devices, batch=4):
     g = torch.Generator().manual_seed(2)
     images = [torch.randint(0, 256, (70 + 5 * i, 90, 3), generator=g,
                             dtype=torch.uint8).numpy() for i in range(6)]
-    counts = (stem.stem_pool, dsra.dsra_level, dsra.dsra_gate)
+    counts = (stem.stem_pool, dsra.dsra_level, dsra.dsra_gate,
+              native_mask.native_masks)
     before = [f.launches for f in counts]
     masks = pred(images)
     torch.cuda.synchronize()
@@ -523,11 +524,14 @@ def _assert_equal_masks(got, want):
 def test_two_replicas_on_one_card_launch_the_kernels(cuda):
     """``devices=["cuda:0"] * 2``: each replica runs its stem kernel once
     and its 3 decoder levels per batch (two batches of 4: 4 and 12), and
-    the masks are one device's at the chunk's batch of 2 (three batches),
-    bit for bit: the same rows through the same convolutions."""
+    its native-size masks once per batch that gives it an image (the
+    second batch's 2 images all go to the first replica: 3), and the masks
+    are one device's at the chunk's batch of 2 (three batches), bit for
+    bit: the same rows through the same convolutions, and each mask made
+    from its own map alone."""
     want, n_one = _replica_masks(["cuda:0"], batch=2)
     got, n_two = _replica_masks(["cuda:0"] * 2)
-    assert n_one == [3, 9, 0] and n_two == [4, 12, 0]
+    assert n_one == [3, 9, 0, 3] and n_two == [4, 12, 0, 3]
     _assert_equal_masks(got, want)
 
 
@@ -539,8 +543,100 @@ def test_two_cards_predictor_launches_on_each(cuda):
         pytest.skip("needs two CUDA cards")
     want, _ = _replica_masks(["cuda:0"], batch=2)
     got, n_two = _replica_masks(["cuda:0", "cuda:1"])
-    assert n_two == [4, 12, 0]
+    assert n_two == [4, 12, 0, 3]
     _assert_equal_masks(got, want)
+
+
+# native sizes of served masks: an HD frame; ETIS, CVC-300 and ClinicDB
+# (288 rows: down along H from 352); a pixel and sides around 352
+MASK_SIZES = {"hd": [(1080, 1920)],
+              "polyp_sets": [(966, 1225), (500, 574), (288, 384)],
+              "edges": [(1, 1), (351, 353)],
+              "full": [(288, 384), (1, 1), (351, 353), (500, 574)]}
+
+
+def _masks(packed, offsets, sizes):
+    flat = packed.cpu().numpy()
+    return [flat[o:o + h * w].reshape(h, w) for o, (h, w) in zip(offsets,
+                                                                 sizes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MASK_SIZES))
+@pytest.mark.parametrize("side", [352, 96])
+def test_native_masks_kernel_matches_plain(cuda, side, case):
+    """Against ``native_masks_plain`` (ATen's resize, sigmoid, min-max and
+    cast) on the same card, a batch of 4 (every case but ``full`` leaves
+    slots padded): each pixel within one level, at most 1e-3 of them
+    apart."""
+    import numpy as np
+
+    sizes = MASK_SIZES[case]
+    g = torch.Generator(device=cuda).manual_seed(side + len(sizes))
+    logits = torch.randn((4, 1, side, side), generator=g, device=cuda) * 4
+    before = native_mask.native_masks.launches
+    packed, offsets = ops.native_masks(logits, sizes)
+    torch.cuda.synchronize()
+    assert native_mask.native_masks.launches == before + 1
+    assert packed.device == logits.device and packed.dtype == torch.uint8
+    want = _masks(*native_mask.native_masks_plain(logits, sizes), sizes)
+    for got, ref in zip(_masks(packed, offsets, sizes), want):
+        diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        assert diff.max() <= 1, diff.max()
+        assert (diff > 0).mean() <= 1e-3, (diff > 0).mean()
+
+
+@pytest.mark.cuda
+def test_native_masks_constant_map_is_zero(cuda):
+    """Min equals max: every mask all zero, as ``+ 1e-8`` makes the
+    reference's."""
+    sizes = MASK_SIZES["full"]
+    packed, offsets = ops.native_masks(
+        torch.full((4, 1, 96, 96), -2.5, device=cuda), sizes)
+    torch.cuda.synchronize()
+    assert not any(m.any() for m in _masks(packed, offsets, sizes))
+
+
+@pytest.mark.cuda
+def test_native_masks_ignore_slot_and_batch(cuda):
+    """An image's mask depends on its map and size alone: the same map in
+    another slot of another batch, among other sizes, gives it bit for
+    bit."""
+    import numpy as np
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    maps = torch.randn((3, 1, 352, 352), generator=g, device=cuda) * 4
+    sizes = [(966, 1225), (288, 384), (500, 574)]
+    a = _masks(*ops.native_masks(maps, sizes), sizes)
+    rev = maps.flip(0).contiguous()
+    b = _masks(*ops.native_masks(torch.cat([rev, rev]), sizes[::-1]),
+               sizes[::-1])
+    one = _masks(*ops.native_masks(maps[1:2], sizes[1:2]), sizes[1:2])
+    torch.cuda.synchronize()
+    for x, y in zip(a, b[::-1]):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a[1], one[0])
+
+
+@pytest.mark.cuda
+def test_native_masks_refuse_bad_inputs(cuda):
+    x = torch.zeros((2, 1, 8, 8), device=cuda)
+    with pytest.raises(TypeError):
+        ops.native_masks(x.bfloat16(), [(4, 4)])
+    with pytest.raises(ValueError):
+        ops.native_masks(x.transpose(2, 3), [(4, 4)])
+    with pytest.raises(ValueError):
+        ops.native_masks(x, [(4, 4)] * 3)
+    with pytest.raises(ValueError):
+        ops.native_masks(x[:, :, None], [(4, 4)])
+    with pytest.raises(RuntimeError):
+        with torch.enable_grad():
+            ops.native_masks(torch.zeros_like(x, requires_grad=True),
+                             [(4, 4)])
+    before = native_mask.native_masks.launches
+    packed, offsets = ops.native_masks(x, [])
+    assert packed.numel() == 0 and offsets == []
+    assert native_mask.native_masks.launches == before
 
 
 @pytest.mark.cuda
