@@ -36,6 +36,9 @@ F5 and F6: PVTv2's ``stage_route`` takes the module chain in training or
 wherever autograd records, ResNet's ``stem_tail`` likewise, so the PVT
 kernels and ``stem_pool`` run only in eval with autograd off.
 
+Each forward is one ``model.forward`` span (``utils.profiling.span``,
+recorded only while recording is on).
+
 ``activation="gelu"`` is flax's ``nn.gelu``, the tanh approximation, as the
 JAX package computes it (the reference's ``nn.GELU()`` is exact erf).
 """
@@ -52,6 +55,7 @@ from pranet2_tpu_torch.models.backbones.resnet import resnet
 from pranet2_tpu_torch.models.registry import register_model
 from pranet2_tpu_torch.nn import ConvBN
 from pranet2_tpu_torch.ops import dsra_gate, resize_bilinear, upsample_nearest
+from pranet2_tpu_torch.utils.profiling import span
 
 # encoder -> stage channels, deepest first (``emcad.py:284-298``)
 PVT_CHANNELS = {"pvt_v2_b0": (256, 160, 64, 32),
@@ -330,16 +334,17 @@ class EMCADNet(nn.Module):
                         nn.Conv2d(c, num_classes, 1))
 
     def forward(self, x):
-        x = x.to(self.conv[0].weight.dtype)  # every conv has the compute type
-        if x.shape[1] == 1:
-            x = self.conv(x)
-        size = tuple(x.shape[-2:])
-        x1, x2, x3, x4 = self.backbone(x)
-        outs = self.decoder(x4, [x3, x2, x1])
-        if not self.dual:
-            outs = [getattr(self, f"out_head{4 - i}")(d)
-                    for i, d in enumerate(outs)]
-        return tuple(resize_bilinear(m, size) for m in outs)
+        with span("model.forward"):
+            x = x.to(self.conv[0].weight.dtype)  # every conv: compute type
+            if x.shape[1] == 1:
+                x = self.conv(x)
+            size = tuple(x.shape[-2:])
+            x1, x2, x3, x4 = self.backbone(x)
+            outs = self.decoder(x4, [x3, x2, x1])
+            if not self.dual:
+                outs = [getattr(self, f"out_head{4 - i}")(d)
+                        for i, d in enumerate(outs)]
+            return tuple(resize_bilinear(m, size) for m in outs)
 
 
 @register_model("emcad")

@@ -24,6 +24,13 @@ combination is per family (``combined_logits``, the one place it lives):
 * 'fg_only': MIST's and EMCAD's ``test_single_volume`` (the sum of fg_i)
 * 'single': models without dual heads (the sum of the maps)
 
+Spans (``utils.profiling.span``, recorded only while recording is on), each
+keyed by the predictor's volume number: ``volume.zoom_in`` around a
+volume's zoom to the patch, ``volume.launch`` around each chunk's copy in,
+forward, combination, argmax and cast, ``volume.copyout_wait`` around the
+wait for that chunk's labels on the host, ``volume.zoom_out`` around the
+volume's zoom back.
+
 The port's functions take the model with its weights where the JAX
 package's take the flax module and its ``variables``.  The train forward
 is the module chain (every kernel is forward only), but for the DSRA
@@ -50,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import time
 
 import numpy as np
@@ -67,6 +75,7 @@ from pranet2_tpu_torch.nn import (drop_path_seeder, keep_batchnorm_stats,
 from pranet2_tpu_torch.train.binary import dtype_of
 from pranet2_tpu_torch.train.optim import make_optimizer
 from pranet2_tpu_torch.train.state import TrainState
+from pranet2_tpu_torch.utils.profiling import span
 
 MODES = ("fg_minus_bg", "fg_only", "single")
 
@@ -113,17 +122,23 @@ def make_slice_predictor(model: nn.Module, patch_size, mode: str,
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     dev = next(model.parameters()).device
     ph, pw = patch_size
+    volumes = itertools.count()  # the spans' keys
 
-    def fwd(batch: np.ndarray) -> np.ndarray:
+    def fwd(batch: np.ndarray, key) -> np.ndarray:
         model.eval()
         with torch.inference_mode():
-            outs = model(torch.from_numpy(batch).to(dev))
-            # softmax is monotonic: the argmax of the logits
-            return combined_logits(outs, mode).argmax(1).int().cpu().numpy()
+            with span("volume.launch", key):
+                outs = model(torch.from_numpy(batch).to(dev))
+                # softmax is monotonic: the argmax of the logits
+                labels = combined_logits(outs, mode).argmax(1).int()
+            with span("volume.copyout_wait", key):
+                return labels.cpu().numpy()
 
     def predict(volume: np.ndarray) -> np.ndarray:
+        key = next(volumes)
         d, x, y = volume.shape
-        slices = zoom_to_patch(volume, (ph, pw))
+        with span("volume.zoom_in", key):
+            slices = zoom_to_patch(volume, (ph, pw))
         preds = np.empty((d, ph, pw), np.int32)
         for start in range(0, d, chunk):
             batch = slices[start:start + chunk]
@@ -131,11 +146,12 @@ def make_slice_predictor(model: nn.Module, patch_size, mode: str,
             if real < chunk:
                 batch = np.concatenate(
                     [batch, np.zeros((chunk - real, 1, ph, pw), np.float32)])
-            preds[start:start + real] = fwd(batch)[:real]
+            preds[start:start + real] = fwd(batch, key)[:real]
         if (x, y) != (ph, pw):
             full = np.empty((d, x, y), preds.dtype)
-            for i in range(d):
-                full[i] = zoom(preds[i], (x / ph, y / pw), order=0)
+            with span("volume.zoom_out", key):
+                for i in range(d):
+                    full[i] = zoom(preds[i], (x / ph, y / pw), order=0)
             return full
         return preds
 

@@ -81,6 +81,26 @@ def test_source_imports_no_jax(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize(
+    "path", sorted(p.relative_to(REPO).as_posix()
+                   for p in (REPO / "perfbench").rglob("*.py")))
+def test_benchmark_source_imports_no_jax(path):
+    """The benchmark imports no JAX; its plain references (``reference/``)
+    import nothing of the program either."""
+    program = path.startswith("perfbench/reference/")
+    tree = ast.parse((REPO / path).read_text(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n) or (
+            program and n.split(".")[0] == "pranet2_tpu_torch")]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
 def _run_smoke(cwd, script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
