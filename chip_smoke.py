@@ -22,7 +22,11 @@
    min-max, uint8; two launches) at a served batch of 16 at the polyp test
    sets' sizes and at an HD frame: every pixel within a level of its plain
    version, at most 1e-3 of them apart; its library chain is ATen's, per
-   image.
+   image.  The volume zoom (``zoom_slices``: order 3, two launches;
+   ``zoom_labels``: order 0, one) on a 198-slice 512^2 volume to 224^2 and
+   back: every pixel within one float32 ulp of the plain version, the
+   labels equal; the host's scipy zoom of a slice, which it replaced,
+   timed beside it.
 3. Serves eight paths of the port (full width and depth, random weights
    from a seed), in bf16 at 352x352, batch 16: PraNet-V2 on Res2Net-50, the
    same with its fused Res2Net blocks (``fused=True, tailfuse=True``),
@@ -62,16 +66,16 @@
    ``run_multiclass_cli``): EMCAD served on PVTv2-b2 and on ResNet-50
    (bf16, 9 classes, random weights from seed 0) over one synthetic
    CT-sized volume (32 slices of 512^2, labels 0-8) through
-   ``train.multiclass.test_volumes`` (host zoom to 224, chunks of 16,
+   ``train.multiclass.test_volumes`` (zoom to 224 on the card, chunks of 16,
    ``fg_only``; the full metrics on PVTv2-b2, Dice alone on ResNet-50
    since PR 14), with the launch counters set to 0 just before and read
-   just after; the forward timed (CUDA events) with its device time by
-   kernel, the host's zoom of a chunk and the volume's wall time; its bf16
-   logits against float32 (TF32 off) and the card's float32 maps against
-   the CPU's.  Then ``train_multiclass`` on EMCAD-B2 (float32, batch 6 at
-   224, 8 steps over 12 synthetic Synapse slices, validated on an
-   ACDC-layout split) with its launches, ms a step, img/s, peak memory
-   and busy time; then ``cli.train_multiclass`` (``pvt_v2_b0``, one epoch)
+   just after (a ``zoom_slices`` and a ``zoom_labels`` a volume); the
+   forward timed (CUDA events) with its device time by kernel, and the
+   volume's wall time; its bf16 logits against float32 (TF32 off) and the
+   card's float32 maps against the CPU's.  Then ``train_multiclass`` on
+   EMCAD-B2 (float32, batch 6 at 224, 8 steps over 12 synthetic Synapse
+   slices, validated on an ACDC-layout split) with its launches, ms a
+   step, img/s, peak memory and busy time; then ``cli.train_multiclass`` (``pvt_v2_b0``, one epoch)
    and ``cli.test_multiclass --dataset acdc`` (a reference-style
    ``.pth``), each in its own process.  Rows 1, 2, 5 and 6 are held
    against their plain versions at EMCAD's shapes in step 2 (the 112^2
@@ -152,6 +156,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+F64_OPS_PER_S = 34e12       # H100 SXM, float64 outside the tensor cores
 BF16_MMA_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
 BATCH, SIZE = 16, 352
 N_IMAGES = 40               # batches of 16, 16 and a padded 8
@@ -247,7 +252,9 @@ LAUNCH_LABELS = {"stem_pool_kernel": "stem_pool",
                  "split_reduce_kernel": "split_reduce",
                  "res2_conv_kernel": "conv_f32",
                  "res2_split_epilogue": "split_epilogue_f32",
-                 "minmax_kernel": "mask_minmax", "write_kernel": "mask_write"}
+                 "minmax_kernel": "mask_minmax", "write_kernel": "mask_write",
+                 "zoom_axis_kernel": "zoom_axis",
+                 "zoom_labels_kernel": "zoom_gather"}
 
 
 # The tracer drops the device events that it places outside a session's
@@ -791,10 +798,11 @@ def check_pvt_mlp(torch, dev) -> dict:
     return out
 
 
-def _one_launch(torch, fn, label, what, calls: int = 5) -> dict:
+def _one_launch(torch, fn, label, what, calls: int = 5,
+                launches: int = 1) -> dict:
     """``launch_profile`` of ``fn``, which must launch the kernel of
-    ``label`` (or of each label of a tuple) once a call and no other
-    kernel."""
+    ``label`` (or of each label of a tuple) ``launches`` times a call and
+    no other kernel."""
     labels = (label,) if isinstance(label, str) else tuple(label)
     keys = [k for k, v in LAUNCH_LABELS.items() if v in labels]
     # a session that lost some of its events is traced again, up to
@@ -804,13 +812,14 @@ def _one_launch(torch, fn, label, what, calls: int = 5) -> dict:
         if any(not any(k in n for k in keys) for n in names):
             raise AssertionError(f"{what}: launches {names}; expected "
                                  f"{labels} alone")
-        if all(abs(prof[lb]["per_call"] - 1) < 1e-9 for lb in labels):
+        if all(abs(prof[lb]["per_call"] - launches) < 1e-9
+               for lb in labels):
             break
         TRACES["short"] += 1
     else:
         counts = [prof[lb]["per_call"] for lb in labels]
         raise AssertionError(f"{what}: {counts} launches of {labels} a "
-                             f"call; expected one each")
+                             f"call; expected {launches} each")
     return prof
 
 
@@ -1462,6 +1471,98 @@ def check_native_mask(torch, dev) -> dict:
             "shapes": rows}
 
 
+# Synapse's deepest CT volume, zoomed to EMCAD's patch and back
+ZOOM_VOLUME = (198, 512, 512)
+
+
+def check_volume_zoom(torch, dev) -> list:
+    """``zoom_slices`` (order 3, two launches of one kernel: the operator
+    over x into a float64 scratch, then over y) and ``zoom_labels`` (order
+    0, one gather) held to their plain versions on ``ZOOM_VOLUME`` (values in
+    [0, 1), as a normalised CT) to 224^2 and back: every pixel within one
+    float32 ulp (float64 sums in another order), the labels equal.  The
+    bound of ``zoom_slices`` is the larger of its banded sums' float64 fma
+    at the rate outside the tensor cores and its bytes (the volume read,
+    the batch written); of ``zoom_labels``, its bytes.  ``host_scipy_ms``
+    is what the kernels replaced: scipy's zoom of 8 slices on the host
+    (order 3, or the labels' order 0), scaled to the volume.  Times a
+    volume; the printed line also gives them a slice."""
+    from scipy.ndimage import zoom
+
+    from pranet2_tpu_torch.ops import volume_zoom as vz
+
+    d, x, y = ZOOM_VOLUME
+    patch = (EMCAD_SIZE, EMCAD_SIZE)
+    g = torch.Generator(device=dev).manual_seed(12)
+    vol = torch.rand(ZOOM_VOLUME, generator=g, device=dev)
+    labels = torch.randint(0, EMCAD_CLASSES, (d, *patch), generator=g,
+                           device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        got = vz.zoom_slices(vol, patch)
+        want = vz.zoom_slices_plain(vol, patch)
+        top = torch.maximum(got.abs(), want.abs())
+        ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
+        over = int(((got - want).abs() > ulp).sum())
+        back = vz.zoom_labels(labels, (x, y))
+        same = torch.equal(back, vz.zoom_labels_plain(labels, (x, y)))
+    if over or not same:
+        raise AssertionError(f"volume zoom: {over} pixels over one ulp, "
+                             f"labels equal: {same}")
+    taps = (vz.cubic_operator(x, patch[0])[1].shape[1],
+            vz.cubic_operator(y, patch[1])[1].shape[1])
+    fma = d * patch[0] * (y * taps[0] + patch[1] * taps[1])
+    t_ops = 2 * fma / F64_OPS_PER_S * 1e3
+    t_bytes = nbytes(vol, got) / HBM_BYTES_PER_S * 1e3
+    host_in, host_out = vol[:8].cpu().numpy(), labels[:8].cpu().numpy()
+    # name: (kernel, plain, host scipy, bound, bound by, traced label,
+    # its launches a call, max |kernel - plain|, unequal share)
+    cases = {
+        "zoom_slices": (lambda: vz.zoom_slices(vol, patch),
+                        lambda: vz.zoom_slices_plain(vol, patch),
+                        lambda: [zoom(s, (patch[0] / x, patch[1] / y),
+                                      order=3) for s in host_in],
+                        max(t_ops, t_bytes),
+                        "operations" if t_ops >= t_bytes else "bytes",
+                        "zoom_axis", 2, (got - want).abs().max().item(),
+                        (got != want).float().mean().item()),
+        "zoom_labels": (lambda: vz.zoom_labels(labels, (x, y)),
+                        lambda: vz.zoom_labels_plain(labels, (x, y)),
+                        lambda: [zoom(s, (x / patch[0], y / patch[1]),
+                                      order=0) for s in host_out],
+                        nbytes(labels, back) / HBM_BYTES_PER_S * 1e3,
+                        "bytes", "zoom_gather", 1, 0, 0.0)}
+    rows = []
+    with torch.inference_mode():
+        for name, (kernel, plain, host, bound, by, label, launches, err,
+                   unequal) in cases.items():
+            t0 = time.perf_counter()
+            host()
+            host_scipy_ms = (time.perf_counter() - t0) * 1e3 * d / 8
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "pranet2_tpu_torch/csrc/volume_zoom.cu",
+                "replaces": "pranet2_tpu/train/multiclass.py:74,89 (host "
+                            "scipy zoom, no kernel)",
+                "volume": list(ZOOM_VOLUME), "patch": list(patch),
+                "max_abs_err": err, "unequal_share": unequal,
+                "ms": time_ms(kernel, reps=5, rounds=5),
+                "device_ms": kernel_ms(torch, kernel, calls=5),
+                "host_ms": host_ms(torch, kernel, calls=20),
+                "plain_ms": time_ms(plain, reps=2, rounds=3),
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "host_scipy_ms": host_scipy_ms,
+                "launches_by_kernel": _one_launch(torch, kernel, label, name,
+                                                  launches=launches)})
+    for r in rows:
+        print(f"{r['name']}: {d} x {x}x{y} <-> {patch[0]}^2, ms "
+              f"{r['ms']:.4f}, device {r['device_ms']:.4f} "
+              f"({r['device_ms'] / d * 1e3:.2f} us a slice), host "
+              f"{r['host_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}), host scipy "
+              f"{r['host_scipy_ms']:.1f}")
+    return rows
+
+
 def synthetic_images(np, n: int) -> list:
     rng = np.random.default_rng(0)
     return [rng.integers(0, 256, (int(rng.integers(288, 577)),
@@ -1479,7 +1580,8 @@ _NO_RES2 = {"fused_bottle2neck": 0, "fused_tail": 0}
 # autograd records take those two): every path's decoder runs three
 # dsra_level launches, and the Res2Net stem one stem_pool
 _TAIL = {"max_pool3x3s2": 0, "dsra_gate": 0, "dsra_level": 3,
-         "depthwise_conv3x3": 0, "native_masks": 0}
+         "depthwise_conv3x3": 0, "native_masks": 0, "zoom_slices": 0,
+         "zoom_labels": 0}
 _SERVED = {"native_masks": 1}
 _PVT = {**_TAIL, "stem_pool": 0, **_NO_RES2}
 # PraNet-V1 has no DSRA gate: its reverse attention and resizes are ATen
@@ -1521,7 +1623,8 @@ MLP_MODES = {"pranet_v2": _NO_MLP, "pranet_v2_fused": _NO_MLP,
 
 def _wrappers():
     from pranet2_tpu_torch.ops import (dsra, dwconv, native_mask, pvt_attn,
-                                       pvt_mlp, res2_block, res2_tail, stem)
+                                       pvt_mlp, res2_block, res2_tail, stem,
+                                       volume_zoom)
     from pranet2_tpu_torch.ops.pvt_block import pvt_block
 
     return {"max_pool3x3s2": stem.max_pool3x3s2, "dsra_gate": dsra.dsra_gate,
@@ -1532,7 +1635,9 @@ def _wrappers():
             "sra_attention": pvt_attn.sra_attention,
             "sra_block": pvt_attn.sra_block, "pvt_block": pvt_block,
             "depthwise_conv3x3": dwconv.depthwise_conv3x3,
-            "native_masks": native_mask.native_masks}
+            "native_masks": native_mask.native_masks,
+            "zoom_slices": volume_zoom.zoom_slices,
+            "zoom_labels": volume_zoom.zoom_labels}
 
 
 def _reset_counts():
@@ -2203,7 +2308,9 @@ def run_volume_path(torch, np, dev, label, cpu_model,
     weights in bf16 on the card) through ``train.multiclass.test_volumes``
     (eval, chunks of 16, the family's test mode; Dice, HD95, Jaccard and
     ASD, or with ``full_metrics=False`` Dice alone); count launches over
-    exactly that run."""
+    exactly that run: the forwards' kernels, and one ``zoom_slices`` and
+    one ``zoom_labels`` (the volume zoomed to 224 and its labels back on
+    the card)."""
     from pranet2_tpu_torch.train.multiclass import (combined_logits,
                                                     test_volumes,
                                                     zoom_to_patch)
@@ -2212,10 +2319,7 @@ def run_volume_path(torch, np, dev, label, cpu_model,
     model = _on_card(torch, cpu_model, dev, torch.bfloat16)
     image, labels = synthetic_volume(np, EMCAD_VOLUME, EMCAD_CLASSES, seed=0)
     patch = (EMCAD_SIZE, EMCAD_SIZE)
-    t0 = time.perf_counter()
-    chunk = zoom_to_patch(image[:EMCAD_CHUNK], patch)
-    zoom_ms = (time.perf_counter() - t0) * 1e3
-    batch = torch.from_numpy(chunk).to(dev)
+    batch = torch.from_numpy(zoom_to_patch(image[:EMCAD_CHUNK], patch)).to(dev)
     with torch.inference_mode():
         model(batch)  # warm-up: cuDNN's choices, the kernels' first launch
     torch.cuda.synchronize()
@@ -2231,6 +2335,7 @@ def run_volume_path(torch, np, dev, label, cpu_model,
     modes = dict(_wrappers()["mlp_block"].mode_launches)
     forwards = -(-EMCAD_VOLUME[0] // EMCAD_CHUNK)
     want = {k: n * forwards for k, n in launches.items()}
+    want.update(zoom_slices=1, zoom_labels=1)
     want_modes = {k: n * forwards for k, n in mlp_modes.items()}
     if counts != want or modes != want_modes:
         raise AssertionError(f"{label}: launches {counts}, MLP modes {modes} "
@@ -2252,7 +2357,7 @@ def run_volume_path(torch, np, dev, label, cpu_model,
             "volume_wall_s": wall, "forward_ms": fwd_ms,
             "forward_img_per_s": EMCAD_CHUNK / fwd_ms * 1e3,
             "idle_share": None if busy is None else 1 - busy / fwd_ms,
-            "host_zoom_ms_per_chunk": zoom_ms, "device": device,
+            "device": device,
             "mean_dice": float(metrics[0, :, 0].mean())}, (batch, logits)
 
 
@@ -2396,7 +2501,9 @@ def train_multiclass_recipe(torch, np, dev) -> dict:
     ``.npz`` slices of 256^2 (labels 0-8) from ``eval_from_frac`` on.
     Launch counts from just before ``train_multiclass`` to just after: 3
     ``dsra_gate`` a step and 3 a validation forward (one chunk a slice),
-    no other kernel (float32: the PVT blocks on the module chain).  Then,
+    and a ``zoom_slices`` and a ``zoom_labels`` a validation slice (each
+    a volume of one slice, 256 to 224 and back); no other kernel (float32:
+    the PVT blocks on the module chain).  Then,
     on the trained state and one batch, ms a step (CUDA events), its
     launches, and its device busy time and idle share."""
     from pranet2_tpu_torch import get_model
@@ -2441,7 +2548,9 @@ def train_multiclass_recipe(torch, np, dev) -> dict:
     eval_from = int(MC_EPOCHS * cfg.eval_from_frac)
     validations = sum(e >= eval_from for e in range(1, MC_EPOCHS + 1))
     want = {**_NONE, "dsra_gate": 3 * steps
-            + 3 * MC_VALID_SLICES * validations}
+            + 3 * MC_VALID_SLICES * validations,
+            "zoom_slices": MC_VALID_SLICES * validations,
+            "zoom_labels": MC_VALID_SLICES * validations}
     if counts != want:
         raise AssertionError(f"multiclass recipe: launches {counts}, "
                              f"expected {want}")
@@ -3661,7 +3770,8 @@ def main() -> int:
                check_res2_tail(torch, dev), check_bottle2neck(torch, dev),
                check_pvt_mlp(torch, dev), check_sra_attention(torch, dev),
                check_sra_block(torch, dev), check_pvt_block(torch, dev),
-               check_dwconv(torch, dev), check_native_mask(torch, dev)]
+               check_dwconv(torch, dev), check_native_mask(torch, dev),
+               *check_volume_zoom(torch, dev)]
     print("kernels checked against their plain versions")
     _lap("build and kernel checks", clock)
 

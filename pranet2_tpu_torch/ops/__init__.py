@@ -1,6 +1,7 @@
 """Tensor ops of the port (NCHW).  Kernels live in ``stem``, ``dsra``,
 ``res2_tail``, ``res2_block``, ``pvt_mlp``, ``pvt_attn``, ``pvt_block``,
-``dwconv`` and ``native_mask``."""
+``dwconv``, ``native_mask`` and ``volume_zoom`` (imported by the volumetric
+predictor alone, not here)."""
 
 from pranet2_tpu_torch.ops.dsra import (dsra_gate, dsra_gate_plain, dsra_level,
                                         dsra_level_plain, reverse_attention)

@@ -12,13 +12,16 @@ clip, per-epoch slice-wise validation (``val_single_volume``) from
 
 Volumetric inference (``test_single_volume``,
 ``MERIT/utils/utils.py:172-264``) loops over slices at batch 1 in the
-reference; here the host zooms each slice to the patch size (scipy, order
-3), the card runs a chunked forward (the last chunk padded to ``chunk``,
-as the JAX package pads it), combines the maps by ``mode`` and takes the
-argmax over the classes, and the host zooms back (order 0): the same
-per-slice results.  The forward runs in eval under
-``torch.inference_mode()``, so a bf16 model's kernels fire.  The dual
-combination is per family (``combined_logits``, the one place it lives):
+reference; here the volume is copied to the model's device once and its
+slices zoomed to the patch size there (``ops.volume_zoom.zoom_slices``:
+scipy's order-3 zoom, a kernel on the card, its plain version on the CPU),
+the device runs a chunked forward (the last chunk padded to ``chunk``, as
+the JAX package pads it), combines the maps by ``mode`` and takes the
+argmax over the classes, zooms the labels back (``zoom_labels``: scipy's
+order 0) and copies them out in one copy: the same per-slice results.
+The forward runs in eval under ``torch.inference_mode()``, so a bf16
+model's kernels fire.  The dual combination is per family
+(``combined_logits``, the one place it lives):
 
 * 'fg_minus_bg': MERIT's test and every validation (the sum of fg_i - bg_i)
 * 'fg_only': MIST's and EMCAD's ``test_single_volume`` (the sum of fg_i)
@@ -26,10 +29,12 @@ combination is per family (``combined_logits``, the one place it lives):
 
 Spans (``utils.profiling.span``, recorded only while recording is on), each
 keyed by the predictor's volume number: ``volume.zoom_in`` around a
-volume's zoom to the patch, ``volume.launch`` around each chunk's copy in,
-forward, combination, argmax and cast, ``volume.copyout_wait`` around the
-wait for that chunk's labels on the host, ``volume.zoom_out`` around the
-volume's zoom back.
+volume's copy in and the launch of its zoom to the patch, ``volume.launch``
+around each chunk's forward, combination, argmax and cast,
+``volume.zoom_out`` around the launch of the labels' zoom back, and
+``volume.copyout_wait`` around the one wait for the volume's labels on the
+host.  On a card only the copy in (from pageable memory) and
+``volume.copyout_wait`` wait for the device.
 
 The port's functions take the model with its weights where the JAX
 package's take the flax module and its ``variables``.  The train forward
@@ -62,7 +67,6 @@ import time
 
 import numpy as np
 import torch
-from scipy.ndimage import zoom
 from torch import nn
 
 from pranet2_tpu_torch import parallel
@@ -72,6 +76,7 @@ from pranet2_tpu_torch.evalx.volumetric import (calculate_dice_percase,
 from pranet2_tpu_torch.losses import mutation_loss
 from pranet2_tpu_torch.nn import (drop_path_seeder, keep_batchnorm_stats,
                                   remat as remat_scope, set_compute_dtype)
+from pranet2_tpu_torch.ops import volume_zoom
 from pranet2_tpu_torch.train.binary import dtype_of
 from pranet2_tpu_torch.train.optim import make_optimizer
 from pranet2_tpu_torch.train.state import TrainState
@@ -98,62 +103,64 @@ def combined_logits(outs, mode: str) -> torch.Tensor:
     raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
 
+def _volume_tensor(volume) -> torch.Tensor:
+    """A (D, H, W) volume as a CPU tensor of its float32 or float64 values
+    (any other type as float32), sharing the array's memory where it can."""
+    v = np.ascontiguousarray(volume)
+    if v.dtype not in (np.float32, np.float64):
+        v = v.astype(np.float32)
+    return torch.from_numpy(v)
+
+
 def zoom_to_patch(volume: np.ndarray, patch_size) -> np.ndarray:
     """A (D, H, W) volume's slices zoomed to ``patch_size`` (order 3), as a
-    (D, 1, ph, pw) float32 batch; unzoomed where they already fit."""
-    d, x, y = volume.shape
-    ph, pw = patch_size
-    slices = np.empty((d, 1, ph, pw), np.float32)
-    for i in range(d):
-        s = volume[i]
-        if (x, y) != (ph, pw):
-            s = zoom(s, (ph / x, pw / y), order=3)
-        slices[i, 0] = s
-    return slices
+    (D, 1, ph, pw) float32 batch; unzoomed where they already fit.  On the
+    host, through ``ops.volume_zoom``'s plain version."""
+    v = _volume_tensor(volume)
+    if tuple(v.shape[1:]) == tuple(patch_size):
+        return v.numpy().astype(np.float32)[:, None]
+    return volume_zoom.zoom_slices(v, patch_size).numpy()
 
 
 def make_slice_predictor(model: nn.Module, patch_size, mode: str,
                          chunk: int = 16):
     """``predict(volume (D, H, W) float32) -> (D, H, W) int32 labels`` on
-    the model's device: host zoom to the patch, a forward of ``chunk``
-    slices at a time, ``combined_logits`` and the argmax on the device,
-    host zoom back (order 0)."""
+    the model's device: the volume copied there and zoomed to the patch
+    (order 3), a forward of ``chunk`` slices at a time, ``combined_logits``
+    and the argmax, the labels zoomed back (order 0) and copied out in
+    one copy; no zoom runs where the slices already fit the patch."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     dev = next(model.parameters()).device
     ph, pw = patch_size
     volumes = itertools.count()  # the spans' keys
 
-    def fwd(batch: np.ndarray, key) -> np.ndarray:
-        model.eval()
-        with torch.inference_mode():
-            with span("volume.launch", key):
-                outs = model(torch.from_numpy(batch).to(dev))
-                # softmax is monotonic: the argmax of the logits
-                labels = combined_logits(outs, mode).argmax(1).int()
-            with span("volume.copyout_wait", key):
-                return labels.cpu().numpy()
-
     def predict(volume: np.ndarray) -> np.ndarray:
         key = next(volumes)
         d, x, y = volume.shape
-        with span("volume.zoom_in", key):
-            slices = zoom_to_patch(volume, (ph, pw))
-        preds = np.empty((d, ph, pw), np.int32)
-        for start in range(0, d, chunk):
-            batch = slices[start:start + chunk]
-            real = batch.shape[0]
-            if real < chunk:
-                batch = np.concatenate(
-                    [batch, np.zeros((chunk - real, 1, ph, pw), np.float32)])
-            preds[start:start + real] = fwd(batch, key)[:real]
-        if (x, y) != (ph, pw):
-            full = np.empty((d, x, y), preds.dtype)
-            with span("volume.zoom_out", key):
-                for i in range(d):
-                    full[i] = zoom(preds[i], (x / ph, y / pw), order=0)
-            return full
-        return preds
+        zoomed = (x, y) != (ph, pw)
+        model.eval()
+        with torch.inference_mode():
+            with span("volume.zoom_in", key):
+                vol = _volume_tensor(volume).to(dev)
+                slices = (volume_zoom.zoom_slices(vol, (ph, pw)) if zoomed
+                          else vol.float()[:, None])
+            preds = torch.empty((d, ph, pw), dtype=torch.int32, device=dev)
+            for start in range(0, d, chunk):
+                with span("volume.launch", key):
+                    batch = slices[start:start + chunk]
+                    real = batch.shape[0]
+                    if real < chunk:
+                        batch = torch.cat([batch, batch.new_zeros(
+                            (chunk - real, 1, ph, pw))])
+                    # softmax is monotonic: the argmax of the logits
+                    preds[start:start + real] = combined_logits(
+                        model(batch), mode).argmax(1)[:real]
+            if zoomed:
+                with span("volume.zoom_out", key):
+                    preds = volume_zoom.zoom_labels(preds, (x, y))
+            with span("volume.copyout_wait", key):
+                return preds.cpu().numpy()
 
     return predict
 
